@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and hold its kernels to their plain versions.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+sm_90a), then runs two phases:
+
+* Phase A, the main path: ``DedupPipeline.run`` with K1 (fused ingest)
+  and K2 (pair agreement counts) on 16,384 synthetic clinical notes.
+  Signatures and bands are held bit for bit against K1's plain version
+  on the same packed matrix, every pair similarity against K2's plain
+  counts / M, and labels, keep mask and pairs against the plain path
+  (staged PyTorch signatures, numpy verifier) on the same notes.
+* Phase B, paper-scale kernels: K1 on a 1,048,576 x 256 token matrix
+  (a tenth of the paper's 10M-note corpus as one ingest chunk) and K2
+  on 16,777,216 random pairs through ``SignatureVerifier``, each against
+  its plain version bit for bit.
+
+Every line but the last is one JSON object; the last is
+``{"ok": true, "device": {...}}``.  Any mismatch or fault raises, so the
+script exits non-zero and prints no result; so it does without a CUDA
+device, or outside a checkout of the repository.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM rates (NVIDIA data sheet; the card's power limit is printed
+# beside every run).  Integer work per SM and clock (CUDA programming
+# guide, throughput table, compute capability 9.0): 64 lanes on the ALU
+# pipe (add, logic, shift, compare, min), 64 lanes of 32-bit integer
+# multiply (IMAD, on the FMA pipe, beside the ALU pipe), and four warp
+# instructions issued, 128 lanes.  The clock is the card's maximum SM
+# clock as nvidia-smi reports it.
+HBM_BYTES_PER_S = 3.35e12
+SMS, ALU_LANES, MUL_LANES, ISSUE_LANES = 132, 64, 64, 128
+
+PHASE_A_NOTES, PHASE_A_DUPS = 12288, 4096
+PHASE_B_DOCS, PHASE_B_LEN, PHASE_B_PAIRS = 1 << 20, 256, 1 << 24
+VERIFY_BATCH = 8192  # SignatureVerifier's default batch: K2's main-path launch size
+
+
+def emit(**obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    emit(nvidia_smi=smi_query("name,power.limit"))
+    clock_hz = float(smi_query("clocks.max.sm", units=False)) * 1e6
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    lib_path, log = build.build()
+    build.library()
+    build_s = time.perf_counter() - t0
+    # Create the CUDA context before any timed work.
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    emit(build={"seconds": build_s, "library": lib_path.name,
+                "ptxas": [ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln]},
+         context_s=time.perf_counter() - t0, clock_max_hz=clock_hz)
+    k1_sass = sass_mix(lib_path, "fused_ingest_kernel")
+    emit(k1_sass=k1_sass)
+
+    k1_line, k2_line = phase_a(torch, clock_hz)
+    k1_line["paper_scale"], k2_line["paper_scale"] = phase_b(
+        torch, clock_hz, k1_sass)
+    emit(kernels=[k1_line, k2_line])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def smi_query(fields: str, units: bool = True) -> str:
+    """One ``nvidia-smi --query-gpu`` reading of the first card."""
+    fmt = "csv,noheader" + ("" if units else ",nounits")
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                          f"--format={fmt}"],
+                         capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+# -- timing and bounds ----------------------------------------------------------
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class ChunkTimer:
+    """Sums device time over chunks, leaving the checks between them out."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.pairs = []
+
+    def __enter__(self):
+        self.start = self.torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        end = self.torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.pairs.append((self.start, end))
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def k1_bound(torch, lengths, L: int, M: int, n: int, r: int,
+             clock_hz: float) -> dict:
+    """Least time for K1 on these inputs: the larger of bytes and operations.
+
+    Operations count what this data needs, by the pipe that can run
+    them.  Each (valid position, seed) triple: the seed add, fmix32 (two
+    multiplies, three shifts, three xors) and half a min (sm_90's
+    three-input min folds two values into the minimum at once).  Each valid
+    position: its n-gram hash (n multiply-adds, fmix32) and the multiply
+    by the golden constant, which no seed changes.  Each fold step: one
+    multiply-add and fmix32.  Bytes: each input read once, each output
+    written once.
+    """
+    ln = lengths.to(torch.int64)
+    nvalid = torch.where(ln >= n, ln - n + 1, (ln > 0).to(torch.int64))
+    V = int(nvalid.clamp(max=L).sum())
+    D = lengths.shape[0]
+    triples, folds = V * M, D * (M // r) * 2 * r
+    ops = {"alu": triples * 3.5 + V * 3 + folds * 3,
+           "mul": triples * 2 + V * (n + 3) + folds * 3,
+           "either": triples * 4 + V * 3 + folds * 3}
+    nbytes = D * L * 4 + D * 4 + M * 4 + D * M * 4 + D * (M // r) * 2 * 4 + D * L
+    return _bound(ops, nbytes, clock_hz) | {"valid_positions": V,
+                                            "triples": triples}
+
+
+def k2_bound(D: int, M: int, P: int, clock_hz: float) -> dict:
+    """Least time for K2: sig and both index vectors read once, counts
+    written once, and M compares plus M adds per pair.  ``gathered_bytes``
+    is what a gather without row reuse moves (two rows per pair)."""
+    nbytes = D * M * 4 + P * 8 * 2 + P * 4
+    return _bound({"alu": P * M, "mul": 0, "either": P * M}, nbytes,
+                  clock_hz) | {"gathered_bytes": P * 2 * M * 4}
+
+
+def ops_ms(alu: float, mul: float, either: float, clock_hz: float) -> float:
+    """Least time of integer work on the card, split by pipe.
+
+    ``alu`` runs only on the ALU pipe (logic, compare, min), ``mul`` only
+    on the multiply pipe, ``either`` on both (an add is an IMAD by 1, a
+    shift an IMAD.HI or IMAD.SHL by a power of two); every operation
+    takes an issue slot.
+    """
+    cycles = max(alu / ALU_LANES, mul / MUL_LANES,
+                 (alu + mul + either) / ISSUE_LANES)
+    return cycles / (SMS * clock_hz) * 1e3
+
+
+def _bound(ops: dict, nbytes: int, clock_hz: float) -> dict:
+    t_ops = ops_ms(ops["alu"], ops["mul"], ops["either"], clock_hz)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "ops": ops, "bytes": nbytes}
+
+
+# Opcodes of the integer ALU pipe.  VIADD (new in sm_90) is counted here;
+# its pipe is not documented.
+ALU_OPS = {"IADD3", "VIADD", "LOP3", "SHF", "ISETP", "IMNMX", "VIMNMX",
+           "VIMNMX3", "SEL", "LEA", "MOV", "PRMT", "IABS", "POPC", "FLO"}
+
+
+def sass_mix(lib_path, kernel: str) -> dict:
+    """The instruction mix of ``kernel``'s min loop, per (position, seed) triple.
+
+    Reads the built library with ``cuobjdump -sass``, takes the loop
+    (a backward branch) densest in min operations, and sorts its
+    instructions by pipe: ``fma`` (IMAD in all its forms), ``alu``
+    (``ALU_OPS``) and ``other`` (shared-memory loads, branches).  A
+    three-input min is two triples.  ``cycles_per_triple`` is the SM
+    clocks the loop needs per triple at full issue: the largest of ALU
+    and FMA pipe work over 64 lanes and all instructions over 128.
+    """
+    from repro_torch.kernels import build
+
+    text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    listing = next(f for f in text.split("Function : ")[1:]
+                   if kernel in f.split("\n", 1)[0])
+    ins = [(int(addr, 16), op, rest) for addr, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+        listing)]
+
+    def mins(body):
+        return sum({"VIMNMX3": 2, "VIMNMX": 1, "IMNMX": 1}.get(op.split(".")[0], 0)
+                   for _, op, _ in body)
+
+    loops = []
+    for addr, op, rest in ins:
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op == "BRA" and target and int(target.group(1), 16) < addr:
+            lo = int(target.group(1), 16)
+            loops.append([x for x in ins if lo <= x[0] <= addr])
+    check(bool(loops), f"{kernel}: no loop in the SASS listing")
+    body = max(loops, key=lambda b: mins(b) / len(b))
+    triples = mins(body)
+    check(triples > 0, f"{kernel}: no min loop in the SASS listing")
+    pipes = {"alu": 0, "fma": 0, "other": 0}
+    for _, op, _ in body:
+        base = op.split(".")[0]
+        pipes["fma" if base == "IMAD" else "alu" if base in ALU_OPS
+              else "other"] += 1
+    per = {k: v / triples for k, v in pipes.items()}
+    issue = len(body) / triples
+    return {"loop": f"{body[0][0]:#x}-{body[-1][0]:#x}",
+            "instructions": len(body), "triples_per_iteration": triples,
+            "per_triple": per | {"issue": issue},
+            "cycles_per_triple": max(per["alu"] / ALU_LANES,
+                                     per["fma"] / MUL_LANES,
+                                     issue / ISSUE_LANES)}
+
+
+def clocks_under_load(torch, fn, reps: int, readings: int = 3) -> list[str]:
+    """nvidia-smi's SM clock and power draw, read while ``reps`` queued
+    runs of ``fn`` execute on the card."""
+    for _ in range(reps):
+        fn()
+    out = [smi_query("clocks.sm,power.draw") for _ in range(readings)]
+    torch.cuda.synchronize()
+    return out
+
+
+def max_abs_err(got, want) -> int:
+    from repro_torch.core.hashing import as_u32
+
+    return int((as_u32(got) - as_u32(want)).abs().max()) if got.numel() else 0
+
+
+# -- phase A: the main path -----------------------------------------------------
+
+def phase_a(torch, clock_hz: float):
+    import numpy as np
+
+    from repro_torch.core import shingle
+    from repro_torch.core.candidates import BandMatrixSource
+    from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
+    from repro_torch.core.pipeline import DedupConfig, DedupPipeline
+    from repro_torch.data import inject_near_duplicates, make_i2b2_like
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+
+    t0 = time.perf_counter()
+    notes, _ = inject_near_duplicates(make_i2b2_like(PHASE_A_NOTES, seed=0),
+                                      PHASE_A_DUPS, seed=1)
+    corpus_s = time.perf_counter() - t0
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel",
+                      verify_batch="band")
+    pipe = DedupPipeline(cfg, device="cuda")
+
+    k1.launches = 0
+    k2.launches = 0
+    t0 = time.perf_counter()
+    res = pipe.run(notes)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"fused_ingest": k1.launches, "pair_counts": k2.launches}
+    check(launches["fused_ingest"] > 0, "K1 launched on the main path")
+    check(launches["pair_counts"] > 0, "K2 launched on the main path")
+
+    D, M = len(notes), cfg.num_hashes
+    check(res.signatures.shape == (D, M) and res.signatures.dtype == np.uint32,
+          "signature matrix shape")
+    check(res.bands.shape == (D, cfg.num_bands, 2), "band matrix shape")
+    check(res.labels.shape == (D,) and res.keep_mask.shape == (D,),
+          "labels and keep mask shape")
+    pairs = np.array([(a, b) for a, b, _ in res.pairs], dtype=np.int64)
+    sims = np.array([s for _, _, s in res.pairs], dtype=np.float32)
+    check(len(pairs) > 0 and bool(np.all(np.isfinite(sims)))
+          and sims.min() >= 0 and sims.max() <= 1, "pair similarities in [0, 1]")
+
+    # K1 against its plain version on the packed matrix the run used.
+    token_lists = pipe.tokenize(notes)
+    lens = [len(t) for t in token_lists]
+    packed = shingle.pack_documents(token_lists,
+                                    shingle.pow2_bucket(max(lens)))
+    tokens = u32_from_numpy(packed.tokens, "cuda")
+    lengths = torch.from_numpy(packed.lengths).cuda()
+    seeds = u32_from_numpy(pipe.seeds, "cuda")
+    sig_p, bands_p, valid_p = k1.fused_ingest_plain(tokens, lengths, seeds)
+    check(np.array_equal(u32_to_numpy(sig_p), res.signatures),
+          "main-path signatures == K1 plain version")
+    check(np.array_equal(u32_to_numpy(bands_p), res.bands),
+          "main-path bands == K1 plain version")
+    sig_k, bands_k, valid_k = k1.fused_ingest(tokens, lengths, seeds)
+    k1_err = max(max_abs_err(sig_k, sig_p),
+                 max_abs_err(bands_k, bands_p),
+                 int((valid_k != valid_p).sum()))
+    check(k1_err == 0, "K1 kernel == plain on the main-path matrix")
+    k1_ms = cuda_ms(torch, lambda: k1.fused_ingest(tokens, lengths, seeds), 20)
+    k1_plain_ms = cuda_ms(
+        torch, lambda: k1.fused_ingest_plain(tokens, lengths, seeds), 3)
+
+    # K2: every evaluated pair, in the verifier's batches.
+    a = torch.from_numpy(pairs[:, 0]).cuda()
+    b = torch.from_numpy(pairs[:, 1]).cuda()
+    counts_p = k2.pair_counts_plain(sig_p, a, b)
+    check(np.array_equal(counts_p.cpu().numpy().astype(np.float32)
+                         / np.float32(M), sims),
+          "main-path pair sims == K2 plain counts / M")
+    batches = [(a[s : s + VERIFY_BATCH], b[s : s + VERIFY_BATCH])
+               for s in range(0, len(pairs), VERIFY_BATCH)]
+    counts_k = torch.cat([k2.pair_counts(sig_k, x, y) for x, y in batches])
+    k2_err = int((counts_k - counts_p).abs().max())
+    check(k2_err == 0, "K2 kernel == plain on the main-path pairs")
+    k2_ms = cuda_ms(torch, lambda: [k2.pair_counts(sig_k, x, y)
+                                    for x, y in batches], 10)
+    k2_plain_ms = cuda_ms(torch, lambda: [k2.pair_counts_plain(sig_k, x, y)
+                                          for x, y in batches], 3)
+
+    # The same notes through the plain path: staged PyTorch signatures on
+    # the card and the numpy verifier, no kernel at all.
+    t0 = time.perf_counter()
+    plain = DedupPipeline(DedupConfig(
+        exact_verification=False, verify_backend="numpy",
+        verify_batch="band"), device="cuda").run(notes)
+    plain_run_s = time.perf_counter() - t0
+    check(np.array_equal(plain.signatures, res.signatures)
+          and np.array_equal(plain.bands, res.bands),
+          "signatures and bands == plain path")
+    check(np.array_equal(plain.labels, res.labels)
+          and np.array_equal(plain.keep_mask, res.keep_mask),
+          "labels and keep mask == plain path")
+    check(plain.pairs == res.pairs, "(a, b, sim) list == plain path")
+
+    # Where the run's time went.  Candidate-run generation (lexsort per
+    # band, run boundaries) happens inside the engine's loop, so it is
+    # timed again alone on the same bands and taken out of cluster_s.
+    t0 = time.perf_counter()
+    groups = sum(1 for runs in BandMatrixSource(res.bands).iter_bands()
+                 for _ in runs.iter_groups())
+    candidates_s = time.perf_counter() - t0
+    t = res.timings
+    stages = {
+        "tokenize": t["tokenize_s"],
+        "pack (token ids, padding)": t["pack_s"],
+        "upload": t["upload_s"],
+        "ingest (K1)": t["ingest_s"],
+        "download (signatures, bands)": t["download_s"],
+        "verifier build": t["verifier_build_s"],
+        "candidate runs (timed alone)": candidates_s,
+        "verify (K2 batches, host side included)": t["verify_s"],
+        "engine loop (cluster_s - verify - candidate runs)":
+            t["cluster_s"] - t["verify_s"] - candidates_s,
+        "labels and keep mask": t["labels_s"],
+        "sorted pair list": t["pairs_s"],
+    }
+    stages["outside the timed stages"] = run_s - sum(stages.values())
+    emit(phase_a={
+        "docs": D, "tokens_mean": float(np.mean(lens)), "tokens_max": max(lens),
+        "L": int(packed.tokens.shape[1]), "corpus_s": corpus_s,
+        "run_s": run_s, "timings": t, "candidate_groups": groups,
+        "stages_ranked": sorted(stages.items(), key=lambda kv: -kv[1]),
+        "clusters": res.num_clusters,
+        "duplicates_removed": res.num_duplicates_removed,
+        "pairs_generated": res.stats.pairs_generated,
+        "pairs_evaluated": res.stats.pairs_evaluated,
+        "pairs_excluded": res.stats.pairs_excluded,
+        "unions": res.stats.unions_done,
+        "verify_batches": res.stats.verify_batches,
+        "launches": launches, "plain_path_run_s": plain_run_s,
+        "plain_path_match": True})
+    common = {"route": "cuda", "library_ms": None, "match": True}
+    k1_line = {"name": "fused_ingest", **common,
+               "source": "src/repro_torch/kernels/csrc/fused_ingest.cu",
+               "replaces": "src/repro/kernels/fused_ingest.py:109",
+               "launches": launches["fused_ingest"], "max_abs_err": k1_err,
+               "ms": k1_ms, "plain_ms": k1_plain_ms,
+               "shape": {"D": D, "L": int(packed.tokens.shape[1]), "M": M},
+               **k1_bound(torch, lengths, packed.tokens.shape[1], M,
+                          cfg.ngram, cfg.rows_per_band, clock_hz)}
+    k2_line = {"name": "pair_counts", **common,
+               "source": "src/repro_torch/kernels/csrc/sigjaccard.cu",
+               "replaces": "src/repro/kernels/sigjaccard.py:65",
+               "launches": launches["pair_counts"], "max_abs_err": k2_err,
+               "ms": k2_ms, "plain_ms": k2_plain_ms,
+               "shape": {"D": D, "M": M, "P": len(pairs),
+                         "batch": VERIFY_BATCH, "launches": len(batches)},
+               **k2_bound(D, M, len(pairs), clock_hz)}
+    return k1_line, k2_line
+
+
+# -- phase B: paper-scale kernels -------------------------------------------------
+
+def phase_b(torch, clock_hz: float, k1_sass: dict):
+    import numpy as np
+
+    from repro_torch.core.hashing import to_bits, u32_from_numpy
+    from repro_torch.core.minhash import default_seeds
+    from repro_torch.core.verify import SignatureVerifier
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+
+    D, L, M, n, r, P = (PHASE_B_DOCS, PHASE_B_LEN, 100, 8, 2, PHASE_B_PAIRS)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    tokens = to_bits(torch.randint(0, 2**32, (D, L), generator=g,
+                                   device="cuda", dtype=torch.int64))
+    lengths = torch.randint(0, L + 1, (D,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    lengths[:8] = torch.arange(8, dtype=torch.int32)  # empty and 1-7 tokens
+    lengths[8:16] = L
+    seeds = u32_from_numpy(default_seeds(M), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    sig, bands, valid = k1.fused_ingest(tokens, lengths, seeds, n=n, r=r)
+    k1_ms = cuda_ms(torch, lambda: k1.fused_ingest(tokens, lengths, seeds,
+                                                   n=n, r=r), 5)
+    rows, timer, k1_err = 8192, ChunkTimer(torch), 0
+    for s in range(0, D, rows):
+        with timer:
+            ps, pb, pv = k1.fused_ingest_plain(
+                tokens[s : s + rows], lengths[s : s + rows], seeds, n=n, r=r)
+        k1_err = max(k1_err, max_abs_err(sig[s : s + rows], ps),
+                     max_abs_err(bands[s : s + rows], pb),
+                     int((valid[s : s + rows] != pv).sum()))
+    k1_plain_ms = timer.ms()
+    check(k1_err == 0, "paper-scale K1 kernel == plain")
+
+    a = torch.randint(0, D, (P,), generator=g, device="cuda")
+    b = torch.randint(0, D, (P,), generator=g, device="cuda")
+    b[: P // 16] = a[: P // 16]  # identical rows: count M
+    sims = SignatureVerifier(sig, backend="kernel", batch_pairs=P,
+                             device="cuda")(torch.stack([a, b], 1).cpu().numpy())
+    k2_ms = cuda_ms(torch, lambda: k2.pair_counts(sig, a, b), 5)
+    rows, timer, k2_err = 1 << 20, ChunkTimer(torch), 0
+    for s in range(0, P, rows):
+        with timer:
+            pc = k2.pair_counts_plain(sig, a[s : s + rows], b[s : s + rows])
+        want = pc.cpu().numpy().astype(np.float32) / np.float32(M)
+        got = sims[s : s + rows]
+        check(np.array_equal(got.view(np.uint32), want.view(np.uint32)),
+              "paper-scale K2 through SignatureVerifier == plain counts / M")
+        k2_err = max(k2_err, float(np.max(np.abs(got - want))))
+    k2_plain_ms = timer.ms()
+    check(bool(np.all(sims[: P // 16] == 1.0)), "a == b pairs have sim 1")
+
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    k1_b = k1_bound(torch, lengths, L, M, n, r, clock_hz)
+    # The issue time of the emitted min loop alone, at the maximum clock:
+    # how far the compiled code, not the work, keeps K1 from its bound.
+    loop_ms = (k1_sass["cycles_per_triple"] * k1_b["triples"]
+               / (SMS * clock_hz) * 1e3)
+    k1_out = {"shape": {"D": D, "L": L, "M": M}, "ms": k1_ms,
+              "plain_ms": k1_plain_ms, "max_abs_err": k1_err, **k1_b,
+              "emitted_loop_ms": loop_ms,
+              "clocks_under_load": clocks_under_load(
+                  torch, lambda: k1.fused_ingest(tokens, lengths, seeds,
+                                                 n=n, r=r), 300)}
+    k2_out = {"shape": {"D": D, "M": M, "P": P}, "ms": k2_ms,
+              "plain_ms": k2_plain_ms, "max_abs_err": k2_err,
+              **k2_bound(D, M, P, clock_hz)}
+    emit(phase_b={"fused_ingest": k1_out, "pair_counts": k2_out,
+                  "peak_gib": peak_gib})
+    return k1_out, k2_out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

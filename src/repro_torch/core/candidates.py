@@ -1,0 +1,162 @@
+"""Candidate generation of the staged dedup engine (paper §3.6/§4).
+
+Port of ``repro.core.candidates`` (host numpy code)::
+
+    CandidateSource  ->  BatchVerifier  ->  ThresholdUnionFind
+    (band runs)          (batched sims)     (guarded unions)
+
+Per band, the ``(band_value, doc)`` pairs are sorted lexicographically
+and the equal-value runs are the candidate groups (the paper's
+sort-based method, §3.6 method 2).  ``BandMatrixSource`` reads a dense
+in-memory ``(D, b, 2)`` band matrix, the ``DedupPipeline`` path.  Doc
+ids are int64 throughout, so global ids of chunked corpora past 2**31
+cannot wrap.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Protocol, runtime_checkable
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class BandRuns:
+    """One band's sorted values/docs plus its equal-value run boundaries.
+
+    ``sorted_vals``: (N, 2) uint32 band values, lexicographically sorted;
+    ``sorted_docs``: (N,) int64 doc ids in the same order;
+    ``run_starts``/``run_ends``: index ranges of equal-value runs
+    (every position belongs to exactly one run; singleton runs included).
+    """
+
+    band_id: int
+    sorted_vals: np.ndarray
+    sorted_docs: np.ndarray
+    run_starts: np.ndarray
+    run_ends: np.ndarray
+
+    def iter_groups(self) -> Iterator[np.ndarray]:
+        """Yield the doc-id array of every run with >= 2 members."""
+        for s, e in zip(self.run_starts, self.run_ends):
+            if e - s >= 2:
+                yield self.sorted_docs[s:e]
+
+
+def lexsort_band(vals: np.ndarray, docs: np.ndarray):
+    """Sort one band's (value, doc) pairs by (hi, lo) value lanes."""
+    order = np.lexsort((vals[:, 1], vals[:, 0]))
+    return vals[order], docs[order]
+
+
+def run_boundaries(sorted_vals: np.ndarray):
+    """Equal-value run (starts, ends) of a sorted (N, 2) value array."""
+    n = len(sorted_vals)
+    if n == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z
+    heads = np.ones(n, dtype=bool)
+    heads[1:] = np.any(sorted_vals[1:] != sorted_vals[:-1], axis=-1)
+    starts = np.flatnonzero(heads)
+    ends = np.append(starts[1:], n)
+    return starts, ends
+
+
+def make_band_runs(band_id: int, vals: np.ndarray,
+                   docs: np.ndarray) -> BandRuns:
+    """Sort one band and find its runs (the shared sort->runs step)."""
+    sv, sd = lexsort_band(np.asarray(vals), np.asarray(docs, dtype=np.int64))
+    starts, ends = run_boundaries(sv)
+    return BandRuns(band_id=band_id, sorted_vals=sv, sorted_docs=sd,
+                    run_starts=starts, run_ends=ends)
+
+
+@runtime_checkable
+class CandidateSource(Protocol):
+    """Anything that can yield per-band sorted run structures."""
+
+    @property
+    def num_docs(self) -> int: ...
+
+    @property
+    def num_bands(self) -> int: ...
+
+    def iter_bands(self) -> Iterator[BandRuns]: ...
+
+
+class BandMatrixSource:
+    """In-memory (D, b, 2) band matrix (the host-pipeline source).
+
+    ``doc_id_base`` maps row i to global doc id ``doc_id_base + i``, for
+    a chunk whose band matrix is row-local but clusters into a global
+    union-find.
+    """
+
+    def __init__(self, bands: np.ndarray, doc_id_base: int = 0):
+        bands = np.asarray(bands)
+        if bands.ndim != 3 or bands.shape[-1] != 2:
+            raise ValueError(f"expected a (D, b, 2) band matrix, got "
+                             f"shape {bands.shape}")
+        self.bands = bands
+        self.doc_id_base = int(doc_id_base)
+        self._doc_ids = self.doc_id_base + np.arange(
+            bands.shape[0], dtype=np.int64)
+
+    @property
+    def num_docs(self) -> int:
+        return self.doc_id_base + self.bands.shape[0]
+
+    @property
+    def num_bands(self) -> int:
+        return self.bands.shape[1]
+
+    def iter_bands(self) -> Iterator[BandRuns]:
+        for j in range(self.num_bands):
+            yield make_band_runs(j, self.bands[:, j, :], self._doc_ids)
+
+
+def pairs_in_runs(
+    sorted_vals: np.ndarray,
+    sorted_docs: np.ndarray,
+    max_pairs: int | None = None,
+) -> np.ndarray:
+    """All pairs within equal runs of one sorted band (O(run^2)).
+
+    Returns (P, 2) int64 candidate pairs with a < b by doc id, at most
+    ``max_pairs`` of them when given.
+    """
+    starts, ends = run_boundaries(np.asarray(sorted_vals))
+    pairs = []
+    total = 0
+    for s, e in zip(starts, ends):
+        k = e - s
+        if k < 2:
+            continue
+        docs = np.sort(np.asarray(sorted_docs[s:e], dtype=np.int64))
+        ii, jj = np.triu_indices(k, k=1)
+        p = np.stack([docs[ii], docs[jj]], axis=-1)
+        pairs.append(p)
+        total += len(p)
+        if max_pairs is not None and total >= max_pairs:
+            break
+    if not pairs:
+        return np.zeros((0, 2), dtype=np.int64)
+    out = np.concatenate(pairs)
+    return out[:max_pairs] if max_pairs is not None else out
+
+
+def candidate_pairs(
+    source: CandidateSource, max_pairs_per_band: int | None = None
+) -> np.ndarray:
+    """All candidate pairs of a source, deduplicated across bands.
+
+    Returns a sorted (P, 2) int64 array.
+    """
+    seen: set[tuple[int, int]] = set()
+    for br in source.iter_bands():
+        pairs = pairs_in_runs(br.sorted_vals, br.sorted_docs,
+                              max_pairs_per_band)
+        seen.update(map(tuple, pairs.tolist()))
+    if not seen:
+        return np.zeros((0, 2), dtype=np.int64)
+    return np.array(sorted(seen), dtype=np.int64)

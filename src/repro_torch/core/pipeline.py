@@ -1,0 +1,271 @@
+"""End-to-end deduplication pipeline (port of ``repro.core.pipeline``).
+
+text docs -> tokenize/stem -> pack -> n-gram hashes -> minhash signatures
+-> band matrix -> candidate runs -> verified similarities -> threshold
+union-find clusters -> keep-list (one representative per cluster).
+
+``DedupPipeline.run`` computes signatures and band values on the
+pipeline's device, either in one pass of K1 (``fused_ingest``) or with
+the staged PyTorch chain, then clusters on the host: one
+``engine.ClusterAccumulator`` fed a ``candidates.BandMatrixSource``, with
+exact Jaccard or the signature estimate (``numpy``, ``torch`` or
+``kernel`` backend, the last being K2) as the verifier.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core import lsh, minhash, shingle
+from repro_torch.core.candidates import BandMatrixSource
+from repro_torch.core.engine import ClusterAccumulator, ClusterStats
+from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
+from repro_torch.core.unionfind import ThresholdUnionFind
+from repro_torch.core.verify import (
+    BACKENDS,
+    ExactJaccardVerifier,
+    SignatureVerifier,
+)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_ingest import fused_ingest
+
+
+@dataclass(frozen=True)
+class DedupConfig:
+    """Paper defaults: n=8, M=100, r=2 (=> b=50), thresholds from §9-10."""
+
+    ngram: int = 8
+    num_hashes: int = 100
+    rows_per_band: int = 2
+    edge_threshold: float = 0.75
+    tree_threshold: float = 0.40
+    use_disjoint_sets: bool = True
+    exact_verification: bool = True  # exact Jaccard vs signature estimate
+    use_kernels: bool = False  # estimate verify through K2 ("auto" backend)
+    fused_ingest: bool = False  # signatures and bands in one pass of K1
+    byte_ingest: bool = False
+    verify_backend: str = "auto"  # estimate mode: numpy | torch | kernel
+    verify_batch: str = "run"  # engine batch granularity: run | band
+    store: str = "memory"
+
+    def __post_init__(self):
+        if self.verify_backend not in ("auto", *BACKENDS):
+            raise ValueError(f"unknown verify backend {self.verify_backend!r}")
+        if self.store not in ("memory", "sqlite"):
+            raise ValueError(f"unknown store backend {self.store!r}; "
+                             "one of ('memory', 'sqlite')")
+        if self.byte_ingest:
+            raise NotImplementedError(
+                "byte_ingest is not ported yet (ROADMAP.md, queue 1: byte "
+                "ingest, with kernel K6)")
+        if self.store == "sqlite":
+            raise NotImplementedError(
+                "store='sqlite' is not ported yet (ROADMAP.md, queue 1: "
+                "multi-step sessions and bounded state, core/bandstore.py)")
+        if self.use_kernels and not self.fused_ingest:
+            raise NotImplementedError(
+                "use_kernels without fused_ingest runs the staged n-gram and "
+                "minhash kernels, which are not ported yet (ROADMAP.md, "
+                "queue 2: K3 and K4)")
+
+    @property
+    def num_bands(self) -> int:
+        return self.num_hashes // self.rows_per_band
+
+    def resolved_backend(self) -> str:
+        if self.verify_backend != "auto":
+            return self.verify_backend
+        return "kernel" if self.use_kernels else "numpy"
+
+
+@dataclass
+class DedupResult:
+    labels: np.ndarray  # (D,) cluster root per doc
+    keep_mask: np.ndarray  # (D,) bool — True for cluster representatives
+    pairs: list  # evaluated (a, b, sim)
+    stats: ClusterStats
+    uf: ThresholdUnionFind
+    signatures: np.ndarray  # (D, M) uint32
+    bands: np.ndarray  # (D, b, 2) uint32
+    timings: dict = field(default_factory=dict)
+
+    @property
+    def num_clusters(self) -> int:
+        """Number of duplicate clusters, i.e. components of size >= 2."""
+        _, counts = np.unique(self.labels, return_counts=True)
+        return int((counts >= 2).sum())
+
+    @property
+    def num_duplicates_removed(self) -> int:
+        return int((~self.keep_mask).sum())
+
+
+class DedupPipeline:
+    """The paper's batch dedup on one device (``"cuda"`` unless told).
+
+    Without a CUDA device, constructing it raises ``RuntimeError`` unless
+    ``device="cpu"`` is passed; on the CPU the kernels' plain versions run.
+    """
+
+    def __init__(self, config: DedupConfig | None = None, *, device="cuda"):
+        self.config = config or DedupConfig()
+        self.device = resolve_device(device)
+        self.seeds = minhash.default_seeds(self.config.num_hashes)
+        # Per-stage wall times of the last compute call.
+        self.stage_timings: dict[str, float] = {}
+
+    @classmethod
+    def from_reference(cls, config_fields: dict, seeds: np.ndarray, *,
+                       device="cuda") -> "DedupPipeline":
+        """Build from ``dataclasses.asdict`` of ``repro``'s DedupConfig and
+        that pipeline's seed vector, so both packages hash alike.
+
+        ``use_pallas`` becomes ``use_kernels``, and the verify backends
+        ``"pallas"`` and ``"jnp"`` become ``"kernel"`` and ``"torch"``.
+        The reference's ``seed`` field is dropped: its pipeline does not
+        read it, and the seed vector arrives as ``seeds``.
+        """
+        fields = dict(config_fields)
+        fields.pop("seed", None)
+        fields["use_kernels"] = fields.pop("use_pallas", False)
+        backend = fields.get("verify_backend", "auto")
+        fields["verify_backend"] = {"pallas": "kernel",
+                                    "jnp": "torch"}.get(backend, backend)
+        pipe = cls(DedupConfig(**fields), device=device)
+        seeds = np.asarray(seeds, dtype=np.uint32)
+        if seeds.shape != pipe.seeds.shape:
+            raise ValueError(f"expected {pipe.seeds.shape} seeds, got "
+                             f"{seeds.shape}")
+        pipe.seeds = seeds
+        return pipe
+
+    # -- stages ------------------------------------------------------------
+
+    def tokenize(self, texts: list[str]) -> list[list[str]]:
+        return [shingle.tokenize(t) for t in texts]
+
+    def _sync(self) -> None:
+        """Wait for the device, so a host clock times finished work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _device_arrays(self, token_lists, pad_len):
+        """(signatures, band values) as word tensors on the device.
+
+        Records ``pack_s`` (token ids and the padded matrix, on the host),
+        ``upload_s`` and ``ingest_s`` (K1, or the staged chain) in
+        ``stage_timings``.
+        """
+        cfg = self.config
+        t0 = time.perf_counter()
+        packed = shingle.pack_documents(token_lists, pad_len)
+        t1 = time.perf_counter()
+        tokens = u32_from_numpy(packed.tokens, self.device)
+        lengths = torch.from_numpy(packed.lengths).to(self.device)
+        seeds = u32_from_numpy(self.seeds, self.device)
+        self._sync()
+        t2 = time.perf_counter()
+        if cfg.fused_ingest:
+            sig, bands, _ = fused_ingest(tokens, lengths, seeds, n=cfg.ngram,
+                                         r=cfg.rows_per_band)
+        else:
+            ng, valid = shingle.ngram_hashes(tokens, lengths, n=cfg.ngram)
+            sig = minhash.signatures(ng, valid, seeds)
+            bands = lsh.band_values(sig, cfg.rows_per_band)
+        self._sync()
+        self.stage_timings.update(pack_s=t1 - t0, upload_s=t2 - t1,
+                                  ingest_s=time.perf_counter() - t2)
+        return sig, bands
+
+    def compute_signatures(self, token_lists: list[list[str]],
+                           pad_len: int | None = None) -> np.ndarray:
+        return u32_to_numpy(self._device_arrays(token_lists, pad_len)[0])
+
+    def compute_bands(self, sig: np.ndarray) -> np.ndarray:
+        return u32_to_numpy(lsh.band_values(
+            u32_from_numpy(sig, self.device), self.config.rows_per_band))
+
+    def compute_arrays(
+        self, token_lists: list[list[str]], pad_len: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """One batch's (signatures, band values) as numpy uint32.
+
+        With ``config.fused_ingest`` both come out of one pass of K1;
+        otherwise the staged PyTorch chain runs.  The bits are the same
+        either way.  ``pad_len`` (>= the longest document) widens the
+        packed matrix without changing the outputs.
+        """
+        sig, bands = self._device_arrays(token_lists, pad_len)
+        return u32_to_numpy(sig), u32_to_numpy(bands)
+
+    def make_verifier(self, token_lists: list[list[str]], sig):
+        """The batched pair verifier for this config.
+
+        ``sig`` is the (D, M) signature matrix, as numpy uint32 or as a
+        word tensor; a tensor on the pipeline's device is used in place.
+        """
+        cfg = self.config
+        if cfg.exact_verification:
+            return ExactJaccardVerifier.from_token_lists(token_lists,
+                                                         cfg.ngram)
+        return SignatureVerifier(sig, backend=cfg.resolved_backend(),
+                                 device=self.device)
+
+    # -- end to end ----------------------------------------------------------
+
+    def run(self, texts: list[str]) -> DedupResult:
+        """One-shot dedup of ``texts``: labels, keep mask and evaluated pairs."""
+        cfg = self.config
+        timings = {}
+        t0 = time.perf_counter()
+        token_lists = self.tokenize(texts)
+        timings["tokenize_s"] = time.perf_counter() - t0
+
+        pad_len = shingle.pow2_bucket(
+            max((len(t) for t in token_lists), default=1))
+        sig_dev, bands_dev = self._device_arrays(token_lists, pad_len)
+        t0 = time.perf_counter()
+        sig, bands = u32_to_numpy(sig_dev), u32_to_numpy(bands_dev)
+        timings.update(self.stage_timings,
+                       download_s=time.perf_counter() - t0)
+        timings["signatures_s"] = sum(timings[k] for k in (
+            "pack_s", "upload_s", "ingest_s", "download_s"))
+
+        # The device backends verify against the matrix already on the
+        # device; only the numpy backend reads the host copy.
+        t0 = time.perf_counter()
+        on_host = cfg.exact_verification or cfg.resolved_backend() == "numpy"
+        verifier = self.make_verifier(token_lists,
+                                      sig if on_host else sig_dev)
+        timings["verifier_build_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        acc = ClusterAccumulator(
+            len(texts), verifier, cfg.edge_threshold, cfg.tree_threshold,
+            use_disjoint_sets=cfg.use_disjoint_sets, batch=cfg.verify_batch)
+        stats = acc.feed(BandMatrixSource(bands))
+        timings["cluster_s"] = time.perf_counter() - t0
+        timings["verify_s"] = stats.verify_seconds
+
+        t0 = time.perf_counter()
+        labels = acc.uf.components()
+        # The first doc of each cluster is its representative.
+        keep = np.zeros(len(texts), dtype=bool)
+        keep[np.unique(labels, return_index=True)[1]] = True
+        timings["labels_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pairs = acc.pairs
+        timings["pairs_s"] = time.perf_counter() - t0
+        return DedupResult(
+            labels=labels,
+            keep_mask=keep,
+            pairs=pairs,
+            stats=stats,
+            uf=acc.uf,
+            signatures=sig,
+            bands=bands,
+            timings=timings,
+        )

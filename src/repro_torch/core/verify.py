@@ -1,0 +1,211 @@
+"""Batched pair verification of the staged dedup engine.
+
+Port of ``repro.core.verify``.  A ``BatchVerifier`` maps a (P, 2) int
+array of candidate doc pairs to a (P,) float32 similarity vector in
+batches:
+
+===================  =====================================================
+verifier             computes
+===================  =====================================================
+SignatureVerifier    signature-agreement estimate m/M (paper §3.4) over
+                     gathered signature rows; backend ``numpy`` (host),
+                     ``torch`` (``minhash.estimate_jaccard`` on the
+                     device) or ``kernel`` (K2, ``kernels.sigjaccard``)
+ExactJaccardVerifier exact set Jaccard (paper §2.1) vectorized over
+                     sorted interned n-gram id arrays
+CallbackVerifier     wrapper around a scalar ``fn(a, b) -> float``
+===================  =====================================================
+
+All three estimate backends return the same float32 bits as numpy's
+``(a == b).mean(axis=-1, dtype=np.float32)``.  All verifiers record
+``n_batches`` / ``n_pairs`` / ``seconds``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import minhash
+from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
+from repro_torch.core.shingle import ngram_set
+from repro_torch.device import resolve_device
+from repro_torch.kernels.sigjaccard import pair_counts
+
+BACKENDS = ("numpy", "torch", "kernel")
+
+
+class BatchVerifier:
+    """Base class: ``verifier(pairs (P, 2)) -> sims (P,) float32``.
+
+    Subclasses implement ``_verify_batch``; ``__call__`` handles
+    batching, empty input, and throughput accounting.
+    """
+
+    batch_pairs: int = 8192
+
+    def __init__(self):
+        self.n_batches = 0
+        self.n_pairs = 0
+        self.seconds = 0.0
+
+    def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def __call__(self, pairs: np.ndarray) -> np.ndarray:
+        pairs = np.asarray(pairs)
+        if pairs.size == 0:
+            return np.zeros((0,), dtype=np.float32)
+        pairs = pairs.reshape(-1, 2)
+        t0 = time.perf_counter()
+        out = np.empty(len(pairs), dtype=np.float32)
+        for s in range(0, len(pairs), self.batch_pairs):
+            chunk = pairs[s : s + self.batch_pairs]
+            out[s : s + len(chunk)] = np.asarray(
+                self._verify_batch(chunk), dtype=np.float32)
+            self.n_batches += 1
+        self.n_pairs += len(pairs)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    @property
+    def pairs_per_second(self) -> float:
+        return self.n_pairs / self.seconds if self.seconds > 0 else 0.0
+
+
+class CallbackVerifier(BatchVerifier):
+    """Wrap a scalar ``similarity_fn(a, b) -> float``."""
+
+    def __init__(self, fn: Callable[[int, int], float]):
+        super().__init__()
+        self.fn = fn
+
+    def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
+        return np.array(
+            [self.fn(int(a), int(b)) for a, b in pairs], dtype=np.float32)
+
+
+class SignatureVerifier(BatchVerifier):
+    """Signature-agreement estimate over gathered signature rows.
+
+    ``signatures`` is a (D, M) numpy uint32 array or an int32 word tensor
+    (``core.hashing``).  ``backend``:
+
+    * ``"numpy"``  -- host ``(sig[a] == sig[b]).mean(-1, dtype=float32)``;
+    * ``"torch"``  -- gather and ``minhash.estimate_jaccard`` on ``device``;
+    * ``"kernel"`` -- K2 (``kernels.sigjaccard.pair_counts``) on
+      ``device``, counts divided by M in PyTorch.
+
+    ``device`` defaults to ``"cuda"`` and raises without a CUDA device
+    unless ``"cpu"`` is passed; on the CPU the kernel backend runs K2's
+    plain version.
+    """
+
+    def __init__(self, signatures, backend: str = "numpy",
+                 batch_pairs: int = 8192, *, device="cuda"):
+        super().__init__()
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        self.backend = backend
+        self.batch_pairs = int(batch_pairs)
+        self.device = resolve_device(device)
+        if isinstance(signatures, torch.Tensor):
+            self._host = None
+            self._dev = signatures.to(self.device)
+            self.num_docs = signatures.shape[0]
+        else:
+            self._host = np.asarray(signatures, dtype=np.uint32)
+            self._dev = None
+            self.num_docs = self._host.shape[0]
+
+    @property
+    def signatures(self) -> np.ndarray:
+        """The (D, M) uint32 matrix on the host."""
+        if self._host is None:
+            self._host = u32_to_numpy(self._dev)
+        return self._host
+
+    def _device_signatures(self) -> torch.Tensor:
+        if self._dev is None:
+            self._dev = u32_from_numpy(self._host, self.device)
+        return self._dev
+
+    def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
+        pairs = np.asarray(pairs, dtype=np.int64)
+        if pairs.min() < 0 or pairs.max() >= self.num_docs:
+            raise IndexError(f"pair index outside [0, {self.num_docs})")
+        a_idx, b_idx = pairs[:, 0], pairs[:, 1]
+        if self.backend == "numpy":
+            sig = self.signatures
+            return (sig[a_idx] == sig[b_idx]).mean(axis=-1, dtype=np.float32)
+        sig = self._device_signatures()
+        a = torch.from_numpy(np.ascontiguousarray(a_idx)).to(self.device)
+        b = torch.from_numpy(np.ascontiguousarray(b_idx)).to(self.device)
+        if self.backend == "torch":
+            est = minhash.estimate_jaccard(sig[a], sig[b])
+        else:
+            est = minhash.estimate_from_counts(pair_counts(sig, a, b),
+                                               sig.shape[1])
+        return est.cpu().numpy()
+
+
+class ExactJaccardVerifier(BatchVerifier):
+    """Vectorized exact Jaccard over sorted interned n-gram id arrays.
+
+    Each document's n-gram set is interned to integer ids once
+    (``from_token_lists``); a batch of P pairs is then verified by
+    concatenating the two padded id rows, sorting each row, and counting
+    adjacent equal values (|A ∩ B| by merge).  Pad slots carry globally
+    unique negative sentinels, so they never match.  Matches
+    ``jaccard.exact_jaccard`` on n-gram sets exactly.
+    """
+
+    def __init__(self, id_rows: list[np.ndarray], batch_pairs: int = 2048):
+        super().__init__()
+        self.batch_pairs = int(batch_pairs)
+        rows = [np.asarray(r, dtype=np.int64) for r in id_rows]
+        self.lengths = np.array([len(r) for r in rows], dtype=np.int64)
+        lmax = int(max(1, self.lengths.max(initial=1)))
+        d = len(rows)
+        self.ids = -(1 + np.arange(d * lmax, dtype=np.int64).reshape(d, lmax))
+        for i, row in enumerate(rows):
+            self.ids[i, : len(row)] = row
+
+    @classmethod
+    def from_token_lists(cls, token_lists: list[list[str]], n: int = 8,
+                         batch_pairs: int = 2048) -> "ExactJaccardVerifier":
+        """Intern every document's n-gram set to sorted int64 id rows."""
+        return cls.from_ngram_sets([ngram_set(t, n) for t in token_lists],
+                                   batch_pairs=batch_pairs)
+
+    @classmethod
+    def from_ngram_sets(cls, ngram_sets: list[set],
+                        batch_pairs: int = 2048) -> "ExactJaccardVerifier":
+        vocab: dict = {}
+        rows = []
+        for s in ngram_sets:
+            ids = {vocab.setdefault(g, len(vocab)) for g in s}
+            rows.append(np.sort(np.fromiter(ids, dtype=np.int64,
+                                            count=len(ids))))
+        return cls(rows, batch_pairs=batch_pairs)
+
+    def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
+        a_idx, b_idx = pairs[:, 0], pairs[:, 1]
+        merged = np.concatenate([self.ids[a_idx], self.ids[b_idx]], axis=1)
+        merged.sort(axis=1)
+        inter = np.sum(merged[:, 1:] == merged[:, :-1], axis=1)
+        union = self.lengths[a_idx] + self.lengths[b_idx] - inter
+        # Two empty sets have Jaccard 1.0 (matches jaccard.exact_jaccard).
+        return np.where(
+            union > 0, inter / np.maximum(union, 1), 1.0).astype(np.float32)
+
+
+def as_verifier(obj) -> BatchVerifier:
+    """Coerce a BatchVerifier or scalar ``fn(a, b)`` into a verifier."""
+    if isinstance(obj, BatchVerifier):
+        return obj
+    if callable(obj):
+        return CallbackVerifier(obj)
+    raise TypeError(f"not a verifier or similarity fn: {obj!r}")

@@ -1,0 +1,123 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and bind them with ctypes.
+
+Each ``.cu`` file compiles to an object in its own ``nvcc`` process, all
+started together, for ``sm_90a`` (Hopper); the objects link into one
+shared library with a plain C interface.  The library is named by a
+hash of the sources and flags and kept in ``build/`` beside this file,
+so a process builds at first use and later processes of the same
+checkout load it.  Nothing here runs at import: the CPU tests import
+every module on machines without nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# name -> (argtypes, restype) of every function the library exports.
+_EXPORTS = {
+    "fused_ingest_launch": ([_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
+                            _I),
+    "pair_counts_launch": ([_P, _I64, _I, _P, _P, _I64, _P, _P], _I),
+    "repro_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(f"{name} not found on PATH or under $CUDA_HOME/bin; "
+                       "the CUDA kernels cannot be built or read")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile and link the kernels unless this checkout already has them.
+
+    Returns the library path and nvcc's messages (``-Xptxas -v``:
+    registers, shared memory and spills per kernel).  Raises
+    ``RuntimeError`` with nvcc's output if a step fails.
+    """
+    lib_path = _library_path()
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.is_file():
+        return lib_path, log_path.read_text() if log_path.is_file() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = cuda_tool()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + "\n".join(log))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib),
+             *(str(obj) for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the CUDA kernels failed:\n{link.stdout}")
+        log_path.write_text("\n".join(log))
+        os.replace(tmp_lib, lib_path)
+    return lib_path, log_path.read_text()
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at the first call of the process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, (argtypes, restype) in _EXPORTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
+
+
+def check_launch(code: int, kernel: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if code != 0:
+        text = library().repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{code} ({text})")

@@ -1,0 +1,153 @@
+"""Port parity for the slice as a whole: ``DedupPipeline.run`` and the corpus.
+
+The port's pipeline is built from the reference's config and seeds
+(``DedupPipeline.from_reference``) and must return the reference's
+labels, keep mask, signatures, bands and (a, b, sim) list bit for bit.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core.pipeline as ref_pipeline
+import repro.data as ref_data
+import repro_torch.data as data
+from repro_torch.core.pipeline import DedupConfig, DedupPipeline
+
+
+@pytest.fixture(scope="module")
+def notes():
+    notes, _ = ref_data.inject_near_duplicates(
+        ref_data.make_i2b2_like(60, seed=0), 30, seed=1)
+    return notes + ["", "short note only", notes[3]]
+
+
+# -- corpus --------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,seed", [(5, 0), (40, 7)])
+def test_corpus_strings_match_reference(n, seed):
+    base = data.make_i2b2_like(n, seed=seed)
+    assert base == ref_data.make_i2b2_like(n, seed=seed)
+    got = data.inject_near_duplicates(base, 25, seed=seed + 1)
+    assert got == ref_data.inject_near_duplicates(base, 25, seed=seed + 1)
+    rng_a, rng_b = np.random.RandomState(seed), np.random.RandomState(seed)
+    assert data.perturb(base[0], 0.3, rng_a) == \
+        ref_data.perturb(base[0], 0.3, rng_b)
+
+
+def test_paper_testsets_match_reference():
+    got_notes, got_srcs = data.accuracy_testset(seed=2)
+    want_notes, want_srcs = ref_data.accuracy_testset(seed=2)
+    assert got_notes == want_notes and list(got_srcs) == list(want_srcs)
+    assert data.clustering_testset(seed=3) == ref_data.clustering_testset(seed=3)
+
+
+# -- the slice end to end ------------------------------------------------------
+
+# (reference config, overrides for the port's side).  The kernel backend's
+# oracle is the reference's numpy backend: its Pallas estimate is 1 ulp off
+# the numpy estimator for some counts, while K2's counts / M is not.
+CONFIGS = {
+    "exact": (dict(), {}),
+    "exact_fused": (dict(fused_ingest=True), {}),
+    "estimate_numpy": (dict(exact_verification=False, verify_backend="numpy"),
+                       {}),
+    "estimate_fused_kernel": (
+        dict(exact_verification=False, fused_ingest=True,
+             verify_backend="numpy", verify_batch="band"),
+        dict(use_pallas=True, verify_backend="pallas")),
+}
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_run_matches_reference(notes, name):
+    ref_fields, port_overrides = CONFIGS[name]
+    ref_cfg = ref_pipeline.DedupConfig(store="memory", **ref_fields)
+    ref_pipe = ref_pipeline.DedupPipeline(ref_cfg)
+    want = ref_pipe.run(notes)
+    fields = {**dataclasses.asdict(ref_cfg), **port_overrides}
+    pipe = DedupPipeline.from_reference(fields, ref_pipe.seeds, device="cpu")
+    got = pipe.run(notes)
+    assert np.array_equal(got.labels, want.labels)
+    assert np.array_equal(got.keep_mask, want.keep_mask)
+    assert np.array_equal(got.signatures, want.signatures)
+    assert np.array_equal(got.bands, want.bands)
+    assert got.signatures.dtype == np.uint32 and got.bands.dtype == np.uint32
+    assert [(a, b) for a, b, _ in got.pairs] == \
+        [(a, b) for a, b, _ in want.pairs]
+    got_sims = np.array([s for _, _, s in got.pairs], dtype=np.float32)
+    want_sims = np.array([s for _, _, s in want.pairs], dtype=np.float32)
+    assert np.array_equal(got_sims, want_sims)
+    assert got.num_clusters == want.num_clusters > 0
+    assert got.stats.pairs_evaluated == want.stats.pairs_evaluated
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_compute_stages_match_reference(notes, fused):
+    ref_cfg = ref_pipeline.DedupConfig(store="memory", fused_ingest=fused)
+    ref_pipe = ref_pipeline.DedupPipeline(ref_cfg)
+    pipe = DedupPipeline.from_reference(dataclasses.asdict(ref_cfg),
+                                        ref_pipe.seeds, device="cpu")
+    toks = pipe.tokenize(notes)
+    assert toks == ref_pipe.tokenize(notes)
+    want_sig, want_bands = ref_pipe.compute_arrays(toks, 256)
+    sig, bands = pipe.compute_arrays(toks, 256)
+    assert np.array_equal(sig, want_sig) and np.array_equal(bands, want_bands)
+    assert np.array_equal(pipe.compute_signatures(toks), want_sig)
+    assert np.array_equal(pipe.compute_bands(sig), want_bands)
+    assert set(pipe.stage_timings) == {"pack_s", "upload_s", "ingest_s"}
+
+
+def test_run_times_every_stage_and_verifies_on_device(notes):
+    pipe = DedupPipeline(DedupConfig(
+        exact_verification=False, fused_ingest=True, use_kernels=True),
+        device="cpu")
+    res = pipe.run(notes)
+    parts = ("pack_s", "upload_s", "ingest_s", "download_s")
+    assert res.timings["signatures_s"] == sum(res.timings[k] for k in parts)
+    for key in ("tokenize_s", "verifier_build_s", "cluster_s", "verify_s",
+                "labels_s", "pairs_s", *parts):
+        assert res.timings[key] >= 0
+    # The kernel backend reads the signature matrix as a device tensor.
+    verifier = pipe.make_verifier([], torch.from_numpy(
+        res.signatures.view(np.int32)))
+    assert verifier.backend == "kernel" and verifier._host is None
+
+
+def test_from_reference_maps_names():
+    fields = dataclasses.asdict(ref_pipeline.DedupConfig(
+        store="memory", use_pallas=True, fused_ingest=True,
+        verify_backend="jnp"))
+    seeds = np.arange(100, dtype=np.uint32)
+    pipe = DedupPipeline.from_reference(fields, seeds, device="cpu")
+    assert pipe.config.use_kernels and pipe.config.verify_backend == "torch"
+    assert np.array_equal(pipe.seeds, seeds)
+    cfg = DedupConfig(use_kernels=True, fused_ingest=True)
+    assert cfg.resolved_backend() == "kernel"
+    with pytest.raises(ValueError):
+        DedupPipeline.from_reference(fields, seeds[:5], device="cpu")
+
+
+def test_default_device_raises_without_cuda():
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DedupPipeline(DedupConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DedupPipeline.from_reference({}, np.zeros(100, np.uint32))
+
+
+@pytest.mark.parametrize("fields", [
+    dict(byte_ingest=True, exact_verification=False),
+    dict(store="sqlite"),
+    dict(use_kernels=True),
+])
+def test_later_slices_raise_not_implemented(fields):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        DedupConfig(**fields)
+
+
+def test_bad_config_values_raise():
+    with pytest.raises(ValueError):
+        DedupConfig(verify_backend="pallas")
+    with pytest.raises(ValueError):
+        DedupConfig(store="redis")
