@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-sm_90a), then runs two phases:
+sm_90a), then runs four phases:
 
 * Phase A, the main path: ``DedupPipeline.run`` with K1 (fused ingest)
   and K2 (pair agreement counts) on 16,384 synthetic clinical notes.
@@ -12,10 +12,22 @@ sm_90a), then runs two phases:
   on the same packed matrix, every pair similarity against K2's plain
   counts / M, and labels, keep mask and pairs against the plain path
   (staged PyTorch signatures, numpy verifier) on the same notes.
-* Phase B, paper-scale kernels: K1 on a 1,048,576 x 256 token matrix
-  (a tenth of the paper's 10M-note corpus as one ingest chunk) and K2
-  on 16,777,216 random pairs through ``SignatureVerifier``, each against
-  its plain version bit for bit.
+* Phase A2, byte ingest: ``run`` with ``byte_ingest`` on the same notes,
+  through K6 (byte token hashes), K1 and K2.  Signatures and bands are
+  held against K6's plain version + compaction + K1's plain version on
+  the same bytes and against the host no-stem chain; labels, keep mask
+  and pairs against a plain-signature ``ClusterAccumulator`` with the
+  numpy verifier.
+* Phase A3, staged kernels: ``run`` with ``use_kernels`` and no fused
+  ingest, through K3 (n-gram hashes), K4 (minhash) and K2; every output
+  equals phase A's.  Then the ``kernels.ops`` entry point K3 -> K4 -> K5
+  (band fold) on phase A's matrix.
+* Phase B, paper-scale kernels: K1, and K3 -> K4 -> K5, on a 1,048,576 x
+  256 token matrix (a tenth of the paper's 10M-note corpus as one ingest
+  chunk); K2 on 16,777,216 random pairs through ``SignatureVerifier``;
+  K6 and ``bytes_to_bands`` on 524,288 text-like rows of 2,048 bytes.
+  Each kernel against its plain version bit for bit, and K4's
+  signatures and K5's bands against K1's.
 
 Every line but the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any mismatch or fault raises, so the
@@ -45,6 +57,10 @@ SMS, ALU_LANES, MUL_LANES, ISSUE_LANES = 132, 64, 64, 128
 
 PHASE_A_NOTES, PHASE_A_DUPS = 12288, 4096
 PHASE_B_DOCS, PHASE_B_LEN, PHASE_B_PAIRS = 1 << 20, 256, 1 << 24
+# Byte ingest at paper scale: half of phase B's documents, so the byte
+# matrix (1 GiB) and its per-position outputs (8 GiB) stay far inside
+# the card's memory.
+PHASE_B_BYTE_DOCS, PHASE_B_BYTES = 1 << 19, 2048
 VERIFY_BATCH = 8192  # SignatureVerifier's default batch: K2's main-path launch size
 
 
@@ -88,10 +104,20 @@ def main() -> int:
     k1_sass = sass_mix(lib_path, "fused_ingest_kernel")
     emit(k1_sass=k1_sass)
 
-    k1_line, k2_line = phase_a(torch, clock_hz)
-    k1_line["paper_scale"], k2_line["paper_scale"] = phase_b(
-        torch, clock_hz, k1_sass)
-    emit(kernels=[k1_line, k2_line])
+    from repro_torch.data import inject_near_duplicates, make_i2b2_like
+
+    t0 = time.perf_counter()
+    notes, _ = inject_near_duplicates(make_i2b2_like(PHASE_A_NOTES, seed=0),
+                                      PHASE_A_DUPS, seed=1)
+    emit(corpus={"notes": len(notes), "seconds": time.perf_counter() - t0})
+    ctx, k1_line, k2_line = phase_a(torch, clock_hz, notes)
+    k6_line = phase_a2(torch, clock_hz, notes)
+    k3_line, k4_line, k5_line = phase_a3(torch, clock_hz, notes, ctx)
+    lines = [k1_line, k2_line, k3_line, k4_line, k5_line, k6_line]
+    paper = phase_b(torch, clock_hz, k1_sass)
+    for line in lines:
+        line["paper_scale"] = paper[line["name"]]
+    emit(kernels=lines)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -178,6 +204,52 @@ def k2_bound(D: int, M: int, P: int, clock_hz: float) -> dict:
     nbytes = D * M * 4 + P * 8 * 2 + P * 4
     return _bound({"alu": P * M, "mul": 0, "either": P * M}, nbytes,
                   clock_hz) | {"gathered_bytes": P * 2 * M * 4}
+
+
+def k3_bound(D: int, L: int, n: int, clock_hz: float) -> dict:
+    """Least time for ``ngram_hashes``: tokens and lengths read once,
+    hashes and validity written once; each position n multiply-adds and
+    fmix32 (two multiplies, three shifts, three xors)."""
+    P = D * L
+    return _bound({"alu": P * 3, "mul": P * (n + 2), "either": P * 3},
+                  P * 9 + D * 4, clock_hz)
+
+
+def k4_bound(valid, M: int, clock_hz: float) -> dict:
+    """Least time for K4, counted as K1's min loop: each (valid position,
+    seed) triple the seed add, fmix32 and half a three-input min; each
+    valid position its multiply by the golden constant.  Bytes: hashes,
+    mask and seeds read once, signatures written once."""
+    D, L = valid.shape
+    V = int(valid.sum())
+    triples = V * M
+    ops = {"alu": triples * 3.5, "mul": triples * 2 + V, "either": triples * 4}
+    nbytes = D * L * 4 + D * L + M * 4 + D * M * 4
+    return _bound(ops, nbytes, clock_hz) | {"valid_positions": V,
+                                            "triples": triples}
+
+
+def k5_bound(D: int, M: int, r: int, clock_hz: float) -> dict:
+    """Least time for K5: signatures read once, band values written once;
+    each of the 2r fold steps per band one multiply-add and fmix32."""
+    folds = D * (M // r) * 2 * r
+    return _bound({"alu": folds * 3, "mul": folds * 3, "either": folds * 3},
+                  D * M * 4 + D * (M // r) * 8, clock_hz)
+
+
+def k6_bound(D: int, W: int, token_bytes: int, tokens: int,
+             clock_hz: float) -> dict:
+    """Least time for K6 on this data: bytes and lengths read once, ids
+    and ends (int32 each) written once.  Each position: its byte's class
+    (three range checks, the length check) and the end test; each token
+    byte: the case fold and an FNV-1a step (xor, multiply); each token:
+    its id, hash_u32 (a multiply-add and fmix32)."""
+    P = D * W
+    ops = {"alu": P * 8 + token_bytes * 2 + tokens * 3,
+           "mul": token_bytes + tokens * 3,
+           "either": P * 3 + token_bytes + tokens * 4}
+    return _bound(ops, P + D * 4 + P * 8, clock_hz) | {
+        "token_bytes": token_bytes, "tokens": tokens}
 
 
 def ops_ms(alu: float, mul: float, either: float, clock_hz: float) -> float:
@@ -275,21 +347,16 @@ def max_abs_err(got, want) -> int:
 
 # -- phase A: the main path -----------------------------------------------------
 
-def phase_a(torch, clock_hz: float):
+def phase_a(torch, clock_hz: float, notes: list[str]):
     import numpy as np
 
     from repro_torch.core import shingle
     from repro_torch.core.candidates import BandMatrixSource
     from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
     from repro_torch.core.pipeline import DedupConfig, DedupPipeline
-    from repro_torch.data import inject_near_duplicates, make_i2b2_like
     from repro_torch.kernels import fused_ingest as k1
     from repro_torch.kernels import sigjaccard as k2
 
-    t0 = time.perf_counter()
-    notes, _ = inject_near_duplicates(make_i2b2_like(PHASE_A_NOTES, seed=0),
-                                      PHASE_A_DUPS, seed=1)
-    corpus_s = time.perf_counter() - t0
     cfg = DedupConfig(fused_ingest=True, use_kernels=True,
                       exact_verification=False, verify_backend="kernel",
                       verify_batch="band")
@@ -395,8 +462,7 @@ def phase_a(torch, clock_hz: float):
     stages["outside the timed stages"] = run_s - sum(stages.values())
     emit(phase_a={
         "docs": D, "tokens_mean": float(np.mean(lens)), "tokens_max": max(lens),
-        "L": int(packed.tokens.shape[1]), "corpus_s": corpus_s,
-        "run_s": run_s, "timings": t, "candidate_groups": groups,
+        "L": int(packed.tokens.shape[1]), "run_s": run_s, "timings": t, "candidate_groups": groups,
         "stages_ranked": sorted(stages.items(), key=lambda kv: -kv[1]),
         "clusters": res.num_clusters,
         "duplicates_removed": res.num_duplicates_removed,
@@ -424,12 +490,237 @@ def phase_a(torch, clock_hz: float):
                "shape": {"D": D, "M": M, "P": len(pairs),
                          "batch": VERIFY_BATCH, "launches": len(batches)},
                **k2_bound(D, M, len(pairs), clock_hz)}
-    return k1_line, k2_line
+    ctx = {"res": res, "tokens": tokens, "lengths": lengths, "seeds": seeds,
+           "sig": sig_k}
+    return ctx, k1_line, k2_line
+
+
+# -- phase A2: byte ingest ------------------------------------------------------
+
+def phase_a2(torch, clock_hz: float, notes: list[str]) -> dict:
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.core import shingle
+    from repro_torch.core.candidates import BandMatrixSource
+    from repro_torch.core.engine import ClusterAccumulator
+    from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
+    from repro_torch.core.pipeline import DedupConfig, DedupPipeline
+    from repro_torch.core.verify import SignatureVerifier
+    from repro_torch.kernels import byte_shingle as k6
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+
+    cfg = DedupConfig(byte_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_batch="band")
+    pipe = DedupPipeline(cfg, device="cuda")
+    k6.launches = k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    res = pipe.run(notes)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"byte_token_hashes": k6.launches, "fused_ingest": k1.launches,
+                "pair_counts": k2.launches}
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched on the byte path")
+    D, M = len(notes), cfg.num_hashes
+    check(res.signatures.shape == (D, M) and res.bands.shape ==
+          (D, cfg.num_bands, 2), "byte path signature and band shapes")
+
+    # K6's plain version + compaction + K1's plain version on the same bytes.
+    nbytes = [len(t.encode("utf-8")) for t in notes]
+    LB = shingle.pow2_bucket(max(nbytes) + 1)
+    packed = shingle.pack_bytes(notes, LB)
+    buf = F.pad(torch.from_numpy(packed.data).cuda(), (0, 1))
+    lengths = torch.from_numpy(packed.lengths).cuda()
+    seeds = u32_from_numpy(pipe.seeds, "cuda")
+    tok_p, ends_p = k6.byte_token_hashes_plain(buf, lengths)
+    tokens_p, counts_p = k6.compact_tokens(tok_p, ends_p, (LB + 1) // 2 + 1)
+    sig_p, bands_p, _ = k1.fused_ingest_plain(tokens_p, counts_p, seeds)
+    check(np.array_equal(u32_to_numpy(sig_p), res.signatures)
+          and np.array_equal(u32_to_numpy(bands_p), res.bands),
+          "byte path signatures and bands == K6 plain + compaction + K1 plain")
+    tok_k, ends_k = k6.byte_token_hashes(buf, lengths)
+    k6_err = max(max_abs_err(tok_k, tok_p), int((ends_k != ends_p).sum()))
+    check(k6_err == 0, "K6 kernel == plain on the main-path bytes")
+    k6_ms = cuda_ms(torch, lambda: k6.byte_token_hashes(buf, lengths), 20)
+    k6_plain_ms = cuda_ms(
+        torch, lambda: k6.byte_token_hashes_plain(buf, lengths), 2)
+    token_bytes = token_byte_count(torch, buf, lengths)
+
+    # The host chain without stemming, on the card.
+    t0 = time.perf_counter()
+    token_lists = [shingle.tokenize(t, do_stem=False) for t in notes]
+    hp = shingle.pack_documents(token_lists, shingle.pow2_bucket(
+        max(len(t) for t in token_lists)))
+    sig_h, bands_h, _ = k1.fused_ingest_plain(
+        u32_from_numpy(hp.tokens, "cuda"),
+        torch.from_numpy(hp.lengths).cuda(), seeds)
+    host_chain_s = time.perf_counter() - t0
+    check(np.array_equal(u32_to_numpy(sig_h), res.signatures)
+          and np.array_equal(u32_to_numpy(bands_h), res.bands),
+          "byte path signatures and bands == host no-stem chain")
+    check(np.array_equal(hp.lengths, counts_p.cpu().numpy()),
+          "device token counts == host token counts")
+
+    # Clustering from the plain signatures with the numpy verifier.
+    t0 = time.perf_counter()
+    sig_np, bands_np = u32_to_numpy(sig_p), u32_to_numpy(bands_p)
+    acc = ClusterAccumulator(
+        D, SignatureVerifier(sig_np, backend="numpy", device="cpu"),
+        cfg.edge_threshold, cfg.tree_threshold,
+        use_disjoint_sets=cfg.use_disjoint_sets, batch=cfg.verify_batch)
+    acc.feed(BandMatrixSource(bands_np))
+    labels = acc.uf.components()
+    keep = np.zeros(D, dtype=bool)
+    keep[np.unique(labels, return_index=True)[1]] = True
+    plain_cluster_s = time.perf_counter() - t0
+    check(np.array_equal(labels, res.labels)
+          and np.array_equal(keep, res.keep_mask),
+          "byte path labels and keep mask == plain clustering")
+    check(acc.pairs == res.pairs, "byte path (a, b, sim) list == plain")
+
+    t = res.timings
+    stages = {"pack (byte matrix)": t["pack_s"], "upload": t["upload_s"],
+              "ingest (K6, compaction, K1)": t["ingest_s"]}
+    stages["rest (download, verify, cluster, pairs)"] = \
+        run_s - sum(stages.values())
+    emit(phase_a2={
+        "docs": D, "bytes_mean": float(np.mean(nbytes)),
+        "bytes_max": max(nbytes), "LB": LB, "token_width": (LB + 1) // 2 + 1,
+        "run_s": run_s, "timings": t,
+        "stages_ranked": sorted(stages.items(), key=lambda kv: -kv[1]),
+        "clusters": res.num_clusters,
+        "duplicates_removed": res.num_duplicates_removed,
+        "pairs_evaluated": res.stats.pairs_evaluated,
+        "launches": launches, "host_chain_s": host_chain_s,
+        "plain_cluster_s": plain_cluster_s, "plain_match": True})
+    return {"name": "byte_token_hashes", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/byte_shingle.cu",
+            "replaces": "src/repro/kernels/byte_shingle.py:102",
+            "launches": launches["byte_token_hashes"], "max_abs_err": k6_err,
+            "ms": k6_ms, "plain_ms": k6_plain_ms, "library_ms": None,
+            "match": True, "shape": {"D": D, "W": LB + 1},
+            **k6_bound(D, LB + 1, token_bytes, int(counts_p.sum()),
+                       clock_hz)}
+
+
+def token_byte_count(torch, data, lengths, rows: int = 1 << 16) -> int:
+    """Bytes of this data that lie in a token: ASCII alnum, before the
+    row's length."""
+    total = 0
+    pos = torch.arange(data.shape[1], device=data.device)[None, :]
+    for s in range(0, data.shape[0], rows):
+        b = data[s : s + rows]
+        lower = b | 0x20  # A-Z fold onto a-z; no other byte lands there
+        alnum = ((lower >= 97) & (lower <= 122)) | ((b >= 48) & (b <= 57))
+        total += int((alnum & (pos < lengths[s : s + rows, None])).sum())
+    return total
+
+
+# -- phase A3: the staged kernels -------------------------------------------------
+
+def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
+    import numpy as np
+
+    from repro_torch.core.hashing import u32_to_numpy
+    from repro_torch.core.pipeline import DedupConfig, DedupPipeline
+    from repro_torch.core.shingle import ngram_valid
+    from repro_torch.kernels import bandfold as k5
+    from repro_torch.kernels import minhash as k4
+    from repro_torch.kernels import ngram as k3
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sigjaccard as k2
+
+    cfg = DedupConfig(use_kernels=True, fused_ingest=False,
+                      exact_verification=False, verify_batch="band")
+    k3.launches = k4.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    res = DedupPipeline(cfg, device="cuda").run(notes)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"ngram_hashes": k3.launches, "minhash_signatures": k4.launches,
+                "pair_counts": k2.launches}
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched on the staged path")
+    want = ctx["res"]
+    check(np.array_equal(res.signatures, want.signatures)
+          and np.array_equal(res.bands, want.bands),
+          "staged signatures and bands == phase A")
+    check(np.array_equal(res.labels, want.labels)
+          and np.array_equal(res.keep_mask, want.keep_mask),
+          "staged labels and keep mask == phase A")
+    check(res.pairs == want.pairs, "staged (a, b, sim) list == phase A")
+
+    # The ops entry point: K3 -> K4 -> K5 on phase A's packed matrix.
+    tokens, lengths, seeds = ctx["tokens"], ctx["lengths"], ctx["seeds"]
+    n, r, M = cfg.ngram, cfg.rows_per_band, cfg.num_hashes
+    k3.launches = k4.launches = k5.launches = 0
+    ng, valid = ops.ngram_hashes(tokens, lengths, n=n)
+    sig = ops.minhash_signatures(ng, valid, seeds)
+    bands = ops.band_values(sig, r)
+    torch.cuda.synchronize()
+    ops_launches = {"ngram_hashes": k3.launches,
+                    "minhash_signatures": k4.launches,
+                    "band_values": k5.launches}
+    check(all(c > 0 for c in ops_launches.values()),
+          "K3, K4 and K5 launched on the ops entry point")
+    check(np.array_equal(u32_to_numpy(sig), want.signatures)
+          and np.array_equal(u32_to_numpy(bands), want.bands),
+          "ops K3 -> K4 -> K5 == phase A signatures and bands")
+
+    ng_p, valid_p = k3.ngram_hashes_plain(tokens, lengths, n=n)
+    k3_err = max(max_abs_err(ng, ng_p), int((valid != valid_p).sum()))
+    sig_p = k4.minhash_signatures_plain(ng_p, valid_p, seeds)
+    k4_err = max_abs_err(sig, sig_p)
+    bands_p = k5.band_values_plain(sig_p, r)
+    k5_err = max_abs_err(bands, bands_p)
+    check(k3_err == 0 and k4_err == 0 and k5_err == 0,
+          "K3, K4, K5 kernels == plain on the main-path matrix")
+    D, L = tokens.shape
+    times = {
+        "k3": cuda_ms(torch, lambda: k3.ngram_hashes(tokens, lengths, n=n), 20),
+        "k3_validity": cuda_ms(torch, lambda: ngram_valid(lengths, L, n), 20),
+        "k3_plain": cuda_ms(
+            torch, lambda: k3.ngram_hashes_plain(tokens, lengths, n=n), 3),
+        "k4": cuda_ms(torch, lambda: k4.minhash_signatures(ng, valid, seeds),
+                      20),
+        "k4_plain": cuda_ms(
+            torch, lambda: k4.minhash_signatures_plain(ng, valid, seeds), 3),
+        "k5": cuda_ms(torch, lambda: k5.band_values(sig, r), 20),
+        "k5_plain": cuda_ms(torch, lambda: k5.band_values_plain(sig, r), 3),
+    }
+    emit(phase_a3={"docs": D, "L": L, "run_s": run_s, "timings": res.timings,
+                   "launches": launches, "ops_launches": ops_launches,
+                   "phase_a_match": True})
+    common = {"route": "cuda", "library_ms": None, "match": True}
+    k3_line = {"name": "ngram_hashes", **common,
+               "source": "src/repro_torch/kernels/csrc/ngram.cu",
+               "replaces": "src/repro/kernels/ngram.py:40",
+               "launches": launches["ngram_hashes"], "max_abs_err": k3_err,
+               "ms": times["k3"], "plain_ms": times["k3_plain"],
+               "validity_ms": times["k3_validity"],
+               "shape": {"D": D, "L": L, "n": n}, **k3_bound(D, L, n, clock_hz)}
+    k4_line = {"name": "minhash_signatures", **common,
+               "source": "src/repro_torch/kernels/csrc/minhash.cu",
+               "replaces": "src/repro/kernels/minhash.py:56",
+               "launches": launches["minhash_signatures"],
+               "max_abs_err": k4_err, "ms": times["k4"],
+               "plain_ms": times["k4_plain"], "shape": {"D": D, "L": L, "M": M},
+               **k4_bound(valid, M, clock_hz)}
+    k5_line = {"name": "band_values", **common,
+               "source": "src/repro_torch/kernels/csrc/bandfold.cu",
+               "replaces": "src/repro/kernels/bandfold.py:41",
+               "path": "kernels.ops entry point",
+               "launches": ops_launches["band_values"], "max_abs_err": k5_err,
+               "ms": times["k5"], "plain_ms": times["k5_plain"],
+               "shape": {"D": D, "M": M, "r": r}, **k5_bound(D, M, r, clock_hz)}
+    return k3_line, k4_line, k5_line
 
 
 # -- phase B: paper-scale kernels -------------------------------------------------
 
-def phase_b(torch, clock_hz: float, k1_sass: dict):
+def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
     import numpy as np
 
     from repro_torch.core.hashing import to_bits, u32_from_numpy
@@ -497,9 +788,154 @@ def phase_b(torch, clock_hz: float, k1_sass: dict):
     k2_out = {"shape": {"D": D, "M": M, "P": P}, "ms": k2_ms,
               "plain_ms": k2_plain_ms, "max_abs_err": k2_err,
               **k2_bound(D, M, P, clock_hz)}
+    out = {"fused_ingest": k1_out, "pair_counts": k2_out}
+    out.update(phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig,
+                              bands, valid, n, r))
+    del tokens, lengths, sig, bands, valid, a, b
+    torch.cuda.empty_cache()
+    out["byte_token_hashes"] = phase_b_bytes(torch, clock_hz, g, seeds, n, r)
     emit(phase_b={"fused_ingest": k1_out, "pair_counts": k2_out,
                   "peak_gib": peak_gib})
-    return k1_out, k2_out
+    return out
+
+
+def phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig, bands, valid,
+                   n: int, r: int) -> dict:
+    """K3 -> K4 -> K5 on phase B's token matrix, each against its plain
+    version on the same inputs; K4's signatures and K5's bands are K1's."""
+    from repro_torch.core.shingle import ngram_valid
+    from repro_torch.kernels import bandfold as k5
+    from repro_torch.kernels import minhash as k4
+    from repro_torch.kernels import ngram as k3
+
+    D, L = tokens.shape
+    M = seeds.shape[0]
+    ng, valid3 = k3.ngram_hashes(tokens, lengths, n=n)
+    sig4 = k4.minhash_signatures(ng, valid3, seeds)
+    bands5 = k5.band_values(sig4, r)
+    check(torch.equal(valid3, valid) and torch.equal(sig4, sig)
+          and torch.equal(bands5, bands),
+          "paper-scale K3 -> K4 -> K5 == K1's validity, signatures, bands")
+    ms = {"k3": cuda_ms(torch, lambda: k3.ngram_hashes(tokens, lengths, n=n), 5),
+          "k3_validity": cuda_ms(torch, lambda: ngram_valid(lengths, L, n), 5),
+          "k4": cuda_ms(torch, lambda: k4.minhash_signatures(ng, valid3, seeds),
+                        5),
+          "k5": cuda_ms(torch, lambda: k5.band_values(sig4, r), 5)}
+    timers = {k: ChunkTimer(torch) for k in ("k3", "k4", "k5")}
+    err = {"k3": 0, "k4": 0, "k5": 0}
+    rows = 8192
+    for s in range(0, D, rows):
+        sl = slice(s, s + rows)
+        with timers["k3"]:
+            png, pvalid = k3.ngram_hashes_plain(tokens[sl], lengths[sl], n=n)
+        with timers["k4"]:
+            psig = k4.minhash_signatures_plain(ng[sl], valid3[sl], seeds)
+        with timers["k5"]:
+            pbands = k5.band_values_plain(sig4[sl], r)
+        err["k3"] = max(err["k3"], max_abs_err(ng[sl], png),
+                        int((valid3[sl] != pvalid).sum()))
+        err["k4"] = max(err["k4"], max_abs_err(sig4[sl], psig))
+        err["k5"] = max(err["k5"], max_abs_err(bands5[sl], pbands))
+    check(all(e == 0 for e in err.values()),
+          "paper-scale K3, K4, K5 kernels == plain")
+    out = {
+        "ngram_hashes": {"shape": {"D": D, "L": L, "n": n}, "ms": ms["k3"],
+                         "validity_ms": ms["k3_validity"],
+                         **k3_bound(D, L, n, clock_hz)},
+        "minhash_signatures": {"shape": {"D": D, "L": L, "M": M},
+                               "ms": ms["k4"], **k4_bound(valid3, M, clock_hz)},
+        "band_values": {"shape": {"D": D, "M": M, "r": r}, "ms": ms["k5"],
+                        **k5_bound(D, M, r, clock_hz)},
+    }
+    for name, key in (("ngram_hashes", "k3"), ("minhash_signatures", "k4"),
+                      ("band_values", "k5")):
+        out[name].update(plain_ms=timers[key].ms(), max_abs_err=err[key])
+    emit(phase_b_staged=out)
+    return out
+
+
+def text_like_bytes(torch, g, D: int, LB: int, rows: int = 1 << 16):
+    """(D, LB) uint8 rows like clinical text, and their byte lengths.
+
+    Bytes are drawn from a 256-entry table: 192 entries of ASCII letters
+    (both cases) and digits (75 %), 61 of spaces and punctuation, 3 of
+    bytes >= 0x80 (1.2 %).  Past each length the bytes are uniform
+    garbage.  Lengths are uniform in 0..LB-1 with 0, 1 and LB-1 forced,
+    and rows 3-7 are one alnum run to the end.
+    """
+    alnum = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+    seps = b"      ..,,;:-/()" * 4
+    table = (alnum * 4)[:192] + seps[:61] + bytes([0x80, 0xC3, 0xE2])
+    table = torch.tensor(list(table), dtype=torch.uint8, device="cuda")
+    lengths = torch.randint(0, LB, (D,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, LB - 1], dtype=torch.int32)
+    lengths[3:8] = LB - 1
+    data = torch.empty((D, LB), dtype=torch.uint8, device="cuda")
+    pos = torch.arange(LB, device="cuda")[None, :]
+    for s in range(0, D, rows):
+        n = min(rows, D - s)
+        idx = torch.randint(0, 256, (n, LB), generator=g, device="cuda",
+                            dtype=torch.uint8)
+        garbage = torch.randint(0, 256, (n, LB), generator=g, device="cuda",
+                                dtype=torch.uint8)
+        data[s : s + n] = torch.where(pos < lengths[s : s + n, None],
+                                      table[idx.long()], garbage)
+    data[3:8, : LB - 1] = torch.tensor(list(b"qQz9A"), dtype=torch.uint8,
+                                       device="cuda")[:, None]
+    return data, lengths
+
+
+def phase_b_bytes(torch, clock_hz, g, seeds, n: int, r: int) -> dict:
+    """K6 and ``bytes_to_bands`` on text-like bytes, each against its plain
+    chain (K6 plain, compaction, K1 plain) on the same bytes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import byte_shingle as k6
+    from repro_torch.kernels import fused_ingest as k1
+
+    D, LB = PHASE_B_BYTE_DOCS, PHASE_B_BYTES
+    data, lengths = text_like_bytes(torch, g, D, LB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sig, bands, counts = k6.bytes_to_bands(data, lengths, seeds, n=n, r=r)
+    torch.cuda.synchronize()
+    chain_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    chain_ms = cuda_ms(torch, lambda: k6.bytes_to_bands(data, lengths, seeds,
+                                                        n=n, r=r), 3)
+    buf = F.pad(data, (0, 1))
+    tok, ends = k6.byte_token_hashes(buf, lengths)
+    k6_ms = cuda_ms(torch, lambda: k6.byte_token_hashes(buf, lengths), 5)
+    width = (LB + 1) // 2 + 1
+    rows, sub, timer = 1 << 15, 8192, ChunkTimer(torch)
+    k6_err, chain_err = 0, 0
+    for s in range(0, D, rows):
+        sl = slice(s, s + rows)
+        with timer:
+            ptok, pends = k6.byte_token_hashes_plain(buf[sl], lengths[sl])
+        k6_err = max(k6_err, max_abs_err(tok[sl], ptok),
+                     int((ends[sl] != pends).sum()))
+        ptokens, pcounts = k6.compact_tokens(ptok, pends, width)
+        chain_err = max(chain_err, int((counts[sl] != pcounts).sum()))
+        for t in range(0, ptokens.shape[0], sub):
+            psig, pbands, _ = k1.fused_ingest_plain(
+                ptokens[t : t + sub], pcounts[t : t + sub], seeds, n=n, r=r)
+            chain_err = max(
+                chain_err, max_abs_err(sig[s + t : s + t + sub], psig),
+                max_abs_err(bands[s + t : s + t + sub], pbands))
+    check(k6_err == 0, "paper-scale K6 kernel == plain")
+    check(chain_err == 0,
+          "paper-scale bytes_to_bands == K6 plain + compaction + K1 plain")
+    token_bytes = token_byte_count(torch, buf, lengths)
+    out = {"shape": {"D": D, "W": LB + 1}, "ms": k6_ms,
+           "plain_ms": timer.ms(), "max_abs_err": k6_err,
+           **k6_bound(D, LB + 1, token_bytes, int(counts.sum()), clock_hz),
+           "bytes_to_bands_ms": chain_ms, "bytes_to_bands_err": chain_err,
+           "bytes_to_bands_peak_gib": chain_peak_gib,
+           "tokens_mean": float(counts.double().mean()),
+           "tokens_max": int(counts.max())}
+    emit(phase_b_bytes=out)
+    return out
 
 
 if __name__ == "__main__":

@@ -5,8 +5,11 @@ text docs -> tokenize/stem -> pack -> n-gram hashes -> minhash signatures
 union-find clusters -> keep-list (one representative per cluster).
 
 ``DedupPipeline.run`` computes signatures and band values on the
-pipeline's device, either in one pass of K1 (``fused_ingest``) or with
-the staged PyTorch chain, then clusters on the host: one
+pipeline's device -- in one pass of K1 (``fused_ingest``), through the
+staged kernels K3 (n-gram hashes) and K4 (minhash) with ``use_kernels``,
+with the staged PyTorch chain, or, with ``byte_ingest``, from raw UTF-8
+bytes through K6 and K1 (``bytes_to_bands``) -- then clusters on the
+host: one
 ``engine.ClusterAccumulator`` fed a ``candidates.BandMatrixSource``, with
 exact Jaccard or the signature estimate (``numpy``, ``torch`` or
 ``kernel`` backend, the last being K2) as the verifier.
@@ -30,7 +33,10 @@ from repro_torch.core.verify import (
     SignatureVerifier,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels.byte_shingle import bytes_to_bands
 from repro_torch.kernels.fused_ingest import fused_ingest
+from repro_torch.kernels.minhash import minhash_signatures
+from repro_torch.kernels.ngram import ngram_hashes
 
 
 @dataclass(frozen=True)
@@ -44,9 +50,11 @@ class DedupConfig:
     tree_threshold: float = 0.40
     use_disjoint_sets: bool = True
     exact_verification: bool = True  # exact Jaccard vs signature estimate
-    use_kernels: bool = False  # estimate verify through K2 ("auto" backend)
+    # Staged signatures through K3 and K4, and estimate verify through K2
+    # (the "auto" backend).
+    use_kernels: bool = False
     fused_ingest: bool = False  # signatures and bands in one pass of K1
-    byte_ingest: bool = False
+    byte_ingest: bool = False  # device bytes -> bands (no stemming; K6, K1)
     verify_backend: str = "auto"  # estimate mode: numpy | torch | kernel
     verify_batch: str = "run"  # engine batch granularity: run | band
     store: str = "memory"
@@ -57,19 +65,15 @@ class DedupConfig:
         if self.store not in ("memory", "sqlite"):
             raise ValueError(f"unknown store backend {self.store!r}; "
                              "one of ('memory', 'sqlite')")
-        if self.byte_ingest:
-            raise NotImplementedError(
-                "byte_ingest is not ported yet (ROADMAP.md, queue 1: byte "
-                "ingest, with kernel K6)")
+        if self.byte_ingest and self.exact_verification:
+            raise ValueError(
+                "byte_ingest never builds host token lists, so exact "
+                "Jaccard verification is impossible; set "
+                "exact_verification=False (signature-estimate mode)")
         if self.store == "sqlite":
             raise NotImplementedError(
                 "store='sqlite' is not ported yet (ROADMAP.md, queue 1: "
                 "multi-step sessions and bounded state, core/bandstore.py)")
-        if self.use_kernels and not self.fused_ingest:
-            raise NotImplementedError(
-                "use_kernels without fused_ingest runs the staged n-gram and "
-                "minhash kernels, which are not ported yet (ROADMAP.md, "
-                "queue 2: K3 and K4)")
 
     @property
     def num_bands(self) -> int:
@@ -156,7 +160,8 @@ class DedupPipeline:
         """(signatures, band values) as word tensors on the device.
 
         Records ``pack_s`` (token ids and the padded matrix, on the host),
-        ``upload_s`` and ``ingest_s`` (K1, or the staged chain) in
+        ``upload_s`` and ``ingest_s`` (K1, or the staged chain: K3, K4 and
+        the plain fold with ``use_kernels``, else plain PyTorch) in
         ``stage_timings``.
         """
         cfg = self.config
@@ -171,10 +176,38 @@ class DedupPipeline:
         if cfg.fused_ingest:
             sig, bands, _ = fused_ingest(tokens, lengths, seeds, n=cfg.ngram,
                                          r=cfg.rows_per_band)
+        elif cfg.use_kernels:
+            ng, valid = ngram_hashes(tokens, lengths, n=cfg.ngram)
+            sig = minhash_signatures(ng, valid, seeds)
+            bands = lsh.band_values(sig, cfg.rows_per_band)
         else:
             ng, valid = shingle.ngram_hashes(tokens, lengths, n=cfg.ngram)
             sig = minhash.signatures(ng, valid, seeds)
             bands = lsh.band_values(sig, cfg.rows_per_band)
+        self._sync()
+        self.stage_timings.update(pack_s=t1 - t0, upload_s=t2 - t1,
+                                  ingest_s=time.perf_counter() - t2)
+        return sig, bands
+
+    def _device_arrays_bytes(self, docs, pad_len):
+        """(signatures, band values) as word tensors on the device, from
+        the documents' UTF-8 bytes: ``bytes_to_bands`` (K6, compaction,
+        K1) whatever ``use_kernels`` says.
+
+        Records ``pack_s`` (the padded byte matrix), ``upload_s`` and
+        ``ingest_s`` in ``stage_timings``.
+        """
+        cfg = self.config
+        t0 = time.perf_counter()
+        packed = shingle.pack_bytes(docs, pad_len)
+        t1 = time.perf_counter()
+        data = torch.from_numpy(packed.data).to(self.device)
+        lengths = torch.from_numpy(packed.lengths).to(self.device)
+        seeds = u32_from_numpy(self.seeds, self.device)
+        self._sync()
+        t2 = time.perf_counter()
+        sig, bands, _ = bytes_to_bands(data, lengths, seeds, n=cfg.ngram,
+                                       r=cfg.rows_per_band)
         self._sync()
         self.stage_timings.update(pack_s=t1 - t0, upload_s=t2 - t1,
                                   ingest_s=time.perf_counter() - t2)
@@ -194,11 +227,27 @@ class DedupPipeline:
         """One batch's (signatures, band values) as numpy uint32.
 
         With ``config.fused_ingest`` both come out of one pass of K1;
-        otherwise the staged PyTorch chain runs.  The bits are the same
-        either way.  ``pad_len`` (>= the longest document) widens the
+        otherwise the staged chain runs (K3 and K4 with
+        ``config.use_kernels``, else plain PyTorch).  The bits are the
+        same either way.  ``pad_len`` (>= the longest document) widens the
         packed matrix without changing the outputs.
         """
         sig, bands = self._device_arrays(token_lists, pad_len)
+        return u32_to_numpy(sig), u32_to_numpy(bands)
+
+    def compute_arrays_bytes(
+        self, docs: list[str | bytes], pad_len: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """One batch's (signatures, band values) from UTF-8 bytes, as numpy
+        uint32.
+
+        The bytes are the only upload; tokenizing (no stemming) happens on
+        the device.  The outputs equal ``compute_arrays`` of
+        ``tokenize(text, do_stem=False)``.  ``pad_len`` widens the byte
+        matrix and must exceed the longest document's byte length
+        (``shingle.pack_bytes``).
+        """
+        sig, bands = self._device_arrays_bytes(docs, pad_len)
         return u32_to_numpy(sig), u32_to_numpy(bands)
 
     def make_verifier(self, token_lists: list[list[str]], sig):
@@ -220,13 +269,21 @@ class DedupPipeline:
         """One-shot dedup of ``texts``: labels, keep mask and evaluated pairs."""
         cfg = self.config
         timings = {}
-        t0 = time.perf_counter()
-        token_lists = self.tokenize(texts)
-        timings["tokenize_s"] = time.perf_counter() - t0
-
-        pad_len = shingle.pow2_bucket(
-            max((len(t) for t in token_lists), default=1))
-        sig_dev, bands_dev = self._device_arrays(token_lists, pad_len)
+        if cfg.byte_ingest:
+            # No host tokenizing: the engine needs only one placeholder
+            # per document (estimate mode never reads tokens).
+            token_lists = [[] for _ in texts]
+            timings["tokenize_s"] = 0.0
+            pad_len = shingle.pow2_bucket(max(
+                (len(t.encode("utf-8")) for t in texts), default=0) + 1)
+            sig_dev, bands_dev = self._device_arrays_bytes(texts, pad_len)
+        else:
+            t0 = time.perf_counter()
+            token_lists = self.tokenize(texts)
+            timings["tokenize_s"] = time.perf_counter() - t0
+            pad_len = shingle.pow2_bucket(
+                max((len(t) for t in token_lists), default=1))
+            sig_dev, bands_dev = self._device_arrays(token_lists, pad_len)
         t0 = time.perf_counter()
         sig, bands = u32_to_numpy(sig_dev), u32_to_numpy(bands_dev)
         timings.update(self.stage_timings,

@@ -1,8 +1,10 @@
 """Shingling: documents -> word n-gram hashes (port of ``repro.core.shingle``).
 
 Host side: text -> stemmed word tokens -> uint32 token ids (a hash
-vocabulary) -> a zero-padded token-id matrix.  Tensor side: the padded
-matrix -> rolling polynomial n-gram hashes and their validity.
+vocabulary) -> a zero-padded token-id matrix; or, for byte ingest, text
+-> a zero-padded UTF-8 byte matrix (``pack_bytes``), tokenized on the
+device by ``kernels.byte_shingle``.  Tensor side: the padded matrix ->
+rolling polynomial n-gram hashes and their validity.
 
 The paper uses word 8-grams with stemming; the stemmer is a light
 suffix stripper that equates inflected forms.
@@ -117,6 +119,55 @@ def pack_documents(
     return PackedDocs(tokens=toks, lengths=lengths)
 
 
+@dataclass(frozen=True)
+class PackedBytes:
+    """A batch of documents as a padded UTF-8 byte matrix."""
+
+    data: np.ndarray  # (D, LB) uint8, zero-padded rows
+    lengths: np.ndarray  # (D,) int32 byte lengths
+
+    @property
+    def num_docs(self) -> int:
+        return self.data.shape[0]
+
+
+def pack_bytes(docs: list[str | bytes],
+               max_len: int | None = None) -> PackedBytes:
+    """Documents -> zero-padded (D, LB) uint8 matrix of their UTF-8 bytes.
+
+    The width must exceed every document's byte length: a token ends at
+    the first separator after it, so a token running to a document's
+    last byte needs one more column to end in.  ``max_len`` (a
+    ``pow2_bucket`` width) is checked against that; without it the
+    width is the longest length + 1.
+    """
+    raw = [d if isinstance(d, bytes) else d.encode("utf-8") for d in docs]
+    lengths = np.array([len(b) for b in raw], dtype=np.int32)
+    need = int(lengths.max(initial=0)) + 1
+    L = int(max_len) if max_len is not None else need
+    if L < need:
+        raise ValueError(
+            f"pack_bytes width {L} < max doc bytes + 1 ({need}); a token "
+            "ending at the last column would be lost")
+    data = np.zeros((len(raw), L), dtype=np.uint8)
+    for i, b in enumerate(raw):
+        data[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+    return PackedBytes(data=data, lengths=lengths)
+
+
+def ngram_valid(lengths: torch.Tensor, L: int, n: int = 8) -> torch.Tensor:
+    """(D, L) validity of the n-gram positions of documents of ``lengths``.
+
+    Position i is valid iff i + n <= length; a document shorter than n
+    keeps one shingle, its whole prefix, at position 0.  So the valid
+    positions are a prefix of the row, of ``nvalid`` positions.
+    """
+    ln = lengths.to(torch.int64)
+    nvalid = torch.where(ln >= n, ln - n + 1, (ln > 0).to(torch.int64))
+    pos = torch.arange(L, device=lengths.device)
+    return pos[None, :] < nvalid[:, None]
+
+
 def ngram_hashes(
     tokens: torch.Tensor, lengths: torch.Tensor, n: int = 8
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -126,9 +177,7 @@ def ngram_hashes(
     Returns (hashes (D, L) int32 bits, valid (D, L) bool).
 
     h(i) = fmix32( sum_k NGRAM_BASE^(n-1-k) * t[i+k] )  (mod 2^32), with
-    zeros past column L.  Position i is valid iff i + n <= length; a
-    document shorter than n keeps one shingle, its whole prefix, at
-    position 0.
+    zeros past column L.  Validity is ``ngram_valid``'s.
     """
     t = as_u32(tokens)
     L = t.shape[1]
@@ -136,7 +185,4 @@ def ngram_hashes(
     acc = torch.zeros_like(t)
     for k in range(n):
         acc = (mul32(acc, NGRAM_BASE) + padded[:, k : k + L]) & MASK32
-    pos = torch.arange(L, device=t.device)[None, :]
-    ln = lengths.to(torch.int64)[:, None]
-    valid = (pos + n <= ln) | ((ln < n) & (pos == 0) & (ln > 0))
-    return to_bits(fmix32(acc)), valid
+    return to_bits(fmix32(acc)), ngram_valid(lengths, L, n)

@@ -2,6 +2,12 @@
 
 * ``fused_ingest`` (K1): packed tokens -> signatures, band values, validity.
 * ``sigjaccard.pair_counts`` (K2): per-pair signature agreement counts.
+* ``ngram.ngram_hashes`` (K3): packed tokens -> n-gram hashes.
+* ``minhash.minhash_signatures`` (K4): n-gram hashes and a mask -> signatures.
+* ``bandfold.band_values`` (K5): signatures -> band values.
+* ``byte_shingle.byte_token_hashes`` (K6): UTF-8 bytes -> token ids at
+  token ends; ``byte_shingle.bytes_to_bands`` chains it with K1.
 
+``ops`` gathers the wrappers under ``repro.kernels.ops``'s names.
 Sources live in ``csrc/``; ``build`` compiles them with nvcc at first use.
 """

@@ -3,7 +3,8 @@
 Each ``.cu`` file compiles to an object in its own ``nvcc`` process, all
 started together, for ``sm_90a`` (Hopper); the objects link into one
 shared library with a plain C interface.  The library is named by a
-hash of the sources and flags and kept in ``build/`` beside this file,
+hash of the flags and of every source and header in ``csrc/``
+(``.cu``, ``.cuh``, ``.h``) and kept in ``build/`` beside this file,
 so a process builds at first use and later processes of the same
 checkout load it.  Nothing here runs at import: the CPU tests import
 every module on machines without nvcc.
@@ -23,12 +24,20 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Files whose bytes name the library; only the .cu files compile.
+HASHED_SUFFIXES = (".cu", ".cuh", ".h")
+
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_U32 = ctypes.c_uint32
 # name -> (argtypes, restype) of every function the library exports.
 _EXPORTS = {
     "fused_ingest_launch": ([_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
                             _I),
     "pair_counts_launch": ([_P, _I64, _I, _P, _P, _I64, _P, _P], _I),
+    "ngram_hashes_launch": ([_P, _P, _I64, _I, _I, _P], _I),
+    "minhash_launch": ([_P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    "band_values_launch": ([_P, _P, _I64, _I, _I, _P], _I),
+    "byte_token_hashes_launch": ([_P, _P, _P, _P, _I64, _I, _U32, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -48,14 +57,21 @@ def cuda_tool(name: str = "nvcc") -> str:
 
 
 def _sources() -> list[Path]:
+    """The translation units: every ``.cu`` file in ``csrc/``."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _library_path() -> Path:
+def _library_path(csrc: Path = CSRC) -> Path:
+    """``build/`` path of the library built from ``csrc`` as it is now.
+
+    A change to any source or header gives a new name, so a stale
+    library is never loaded.
+    """
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for f in sorted(csrc.iterdir()):
+        if f.suffix in HASHED_SUFFIXES:
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 

@@ -30,25 +30,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hash_common.cuh"
+
 namespace {
 
-constexpr uint32_t kGolden = 0x9E3779B9u;
-constexpr uint32_t kNgramBase = 0x01000193u;
-constexpr uint32_t kLaneSeed0 = 0x2545F491u;
-constexpr uint32_t kLaneSeed1 = 0x9E3779B9u;
+using repro::fold_lane;
+using repro::hash_u32;
+using repro::kLaneSeed0;
+using repro::kLaneSeed1;
+using repro::ngram_hash;
+
 constexpr int kThreads = 128;
 // Positions per L tile: long documents (pow2-bucketed widths reach 4096
 // and more) are walked tile by tile so shared memory stays small.
 constexpr int kMaxTile = 1024;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
 
 // One block per document.  Shared memory: tok[tile + n - 1] (the tile's
 // tokens plus the window halo), ng[tile] (n-gram hashes), sig[M].
@@ -79,16 +74,13 @@ __global__ void __launch_bounds__(kThreads) fused_ingest_kernel(
       tok[i] = l < L ? row[l] : 0u;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < nt; i += blockDim.x) {
-      uint32_t acc = 0u;
-      for (int k = 0; k < n; ++k) acc = acc * kNgramBase + tok[i + k];
-      ng[i] = fmix32(acc);
-    }
+    for (int i = threadIdx.x; i < nt; i += blockDim.x)
+      ng[i] = ngram_hash(tok + i, n);
     __syncthreads();
     for (int m = threadIdx.x; m < M; m += blockDim.x) {
       const uint32_t s = seeds[m];
       uint32_t mn = srow[m];
-      for (int i = 0; i < nt; ++i) mn = min(mn, fmix32(ng[i] * kGolden + s));
+      for (int i = 0; i < nt; ++i) mn = min(mn, hash_u32(ng[i], s));
       srow[m] = mn;
     }
   }
@@ -98,9 +90,8 @@ __global__ void __launch_bounds__(kThreads) fused_ingest_kernel(
   const int b = M / r;
   for (int j = threadIdx.x; j < 2 * b; j += blockDim.x) {
     const int band = j >> 1;
-    uint32_t h = (j & 1) ? kLaneSeed1 : kLaneSeed0;
-    for (int k = 0; k < r; ++k) h = fmix32(h * kGolden + srow[band * r + k]);
-    bands[(d * b + band) * 2 + (j & 1)] = h;
+    bands[(d * b + band) * 2 + (j & 1)] =
+        fold_lane(srow + band * r, r, (j & 1) ? kLaneSeed1 : kLaneSeed0);
   }
 }
 

@@ -3,14 +3,15 @@
 ``pair_counts(sig, a_idx, b_idx)`` returns, for each pair p, the number
 of m with ``sig[a_idx[p], m] == sig[b_idx[p], m]`` as int32.  It launches
 the CUDA kernel (``csrc/sigjaccard.cu``) for tensors on the card and runs
-``pair_counts_plain`` for tensors on the CPU.  The Jaccard estimate is
-``minhash.estimate_from_counts(counts, M)``, divided in PyTorch and
-correctly rounded.
+``pair_counts_plain`` for tensors on the CPU.  The Jaccard estimate,
+``indexed_pair_estimate``, is ``minhash.estimate_from_counts(counts, M)``,
+divided in PyTorch and correctly rounded.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.minhash import estimate_from_counts
 from repro_torch.kernels import build
 
 # Kernel launches made by ``pair_counts`` in this process.
@@ -62,3 +63,9 @@ def pair_counts(sig: torch.Tensor, a_idx: torch.Tensor,
     build.check_launch(code, "pair_counts")
     launches += 1
     return counts
+
+
+def indexed_pair_estimate(sig: torch.Tensor, a_idx: torch.Tensor,
+                          b_idx: torch.Tensor) -> torch.Tensor:
+    """(P,) float32 Jaccard estimates: ``pair_counts`` / M, correctly rounded."""
+    return estimate_from_counts(pair_counts(sig, a_idx, b_idx), sig.shape[1])

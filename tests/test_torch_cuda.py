@@ -15,7 +15,11 @@ from repro_torch.core.minhash import estimate_from_counts
 from repro_torch.core.pipeline import DedupConfig, DedupPipeline
 from repro_torch.core.verify import SignatureVerifier
 from repro_torch.data import inject_near_duplicates, make_i2b2_like
+from repro_torch.kernels import bandfold as k5
+from repro_torch.kernels import byte_shingle as k6
 from repro_torch.kernels import fused_ingest as k1
+from repro_torch.kernels import minhash as k4
+from repro_torch.kernels import ngram as k3
 from repro_torch.kernels import sigjaccard as k2
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +101,120 @@ def test_pipeline_with_kernels_matches_plain_path(cuda):
     plain = DedupPipeline(DedupConfig(
         exact_verification=False, verify_backend="numpy",
         verify_batch="band"), device=cuda).run(notes)
+    assert np.array_equal(kern.signatures, plain.signatures)
+    assert np.array_equal(kern.bands, plain.bands)
+    assert np.array_equal(kern.labels, plain.labels)
+    assert kern.pairs == plain.pairs
+
+
+@pytest.mark.parametrize("D,L,n", [
+    (300, 40, 8),
+    (64, 5, 8),       # L < n
+    (20, 700, 3),     # several tiles of 256
+    (3, 2500, 8),
+])
+def test_ngram_kernel_matches_plain(cuda, D, L, n):
+    tokens, lengths, _ = _packed(D, L, 1, seed=L + n, device=cuda)
+    k3.launches = 0
+    got = k3.ngram_hashes(tokens, lengths, n=n)
+    torch.cuda.synchronize()
+    assert k3.launches == 1
+    for g, w in zip(got, k3.ngram_hashes_plain(tokens, lengths, n=n)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("D,L,M", [
+    (200, 40, 100),
+    (30, 200, 1),
+    (30, 200, 130),    # more seeds than threads
+    (5, 2500, 260),    # several L tiles
+])
+def test_minhash_kernel_matches_plain(cuda, D, L, M):
+    tokens, _, seeds = _packed(D, L, M, seed=D + L + M, device=cuda)
+    rng = np.random.RandomState(L)
+    valid = torch.from_numpy(rng.rand(D, L) < 0.8).to(cuda)
+    valid[0] = False  # no valid position: U32_MAX
+    valid[1] = True
+    k4.launches = 0
+    got = k4.minhash_signatures(tokens, valid, seeds)
+    torch.cuda.synchronize()
+    assert k4.launches == 1
+    assert torch.equal(got, k4.minhash_signatures_plain(tokens, valid, seeds))
+    assert bool((got[0] == -1).all())
+
+
+@pytest.mark.parametrize("D,M,r", [(1000, 100, 2), (77, 24, 8), (5, 7, 1),
+                                   (300, 15, 3)])
+def test_band_values_kernel_matches_plain(cuda, D, M, r):
+    _, _, sig = _packed(1, 1, D * M, seed=M + r, device=cuda)
+    sig = sig.reshape(D, M)
+    k5.launches = 0
+    got = k5.band_values(sig, r)
+    torch.cuda.synchronize()
+    assert k5.launches == 1
+    assert torch.equal(got, k5.band_values_plain(sig, r))
+
+
+def _text_bytes(D, LB, seed):
+    """Text-like rows: alnum runs of both cases, spaces, punctuation,
+    bytes >= 0x80, garbage past each length, some rows of one run."""
+    rng = np.random.RandomState(seed)
+    alphabet = np.frombuffer(
+        b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+        b"     .,;:-/()", dtype=np.uint8)
+    data = alphabet[rng.randint(0, len(alphabet), size=(D, LB))]
+    high = rng.rand(D, LB) < 0.01
+    data[high] = rng.randint(0x80, 0x100, size=int(high.sum()))
+    lengths = rng.randint(0, LB, size=D).astype(np.int32)
+    lengths[:4] = [0, 1, LB - 1, LB - 1]
+    data[3, : LB - 1] = ord("Z")  # one run to the end of the row
+    return data, lengths
+
+
+@pytest.mark.parametrize("D,LB", [(257, 300), (40, 2049), (6, 5)])
+def test_byte_token_kernel_matches_plain(cuda, D, LB):
+    data, lengths = _text_bytes(D, LB, seed=LB)
+    data, lengths = (torch.from_numpy(x).to(cuda) for x in (data, lengths))
+    k6.launches = 0
+    got = k6.byte_token_hashes(data, lengths)
+    torch.cuda.synchronize()
+    assert k6.launches == 1
+    for g, w in zip(got, k6.byte_token_hashes_plain(data, lengths)):
+        assert torch.equal(g, w)
+
+
+def test_bytes_to_bands_kernels_match_plain_chain(cuda):
+    data, lengths = _text_bytes(500, 1024, seed=5)
+    data, lengths = (torch.from_numpy(x).to(cuda) for x in (data, lengths))
+    _, _, seeds = _packed(1, 1, 100, seed=6, device=cuda)
+    k1.launches = k6.launches = 0
+    sig, bands, counts = k6.bytes_to_bands(data, lengths, seeds)
+    torch.cuda.synchronize()
+    assert k1.launches == 1 and k6.launches == 1
+    tok, ends = k6.byte_token_hashes_plain(
+        torch.nn.functional.pad(data, (0, 1)), lengths)
+    tokens, pcounts = k6.compact_tokens(tok, ends, 1025 // 2 + 1)
+    psig, pbands, _ = k1.fused_ingest_plain(tokens, pcounts, seeds)
+    assert torch.equal(counts, pcounts)
+    assert torch.equal(sig, psig) and torch.equal(bands, pbands)
+
+
+@pytest.mark.parametrize("fields,kernels", [
+    (dict(byte_ingest=True), (k6, k1, k2)),
+    (dict(fused_ingest=False), (k3, k4, k2)),
+])
+def test_byte_and_staged_runs_match_plain_path(cuda, fields, kernels):
+    notes, _ = inject_near_duplicates(make_i2b2_like(200, seed=0), 100,
+                                      seed=1)
+    cfg = dict(fields, use_kernels=True, exact_verification=False,
+               verify_batch="band")
+    for k in kernels:
+        k.launches = 0
+    kern = DedupPipeline(DedupConfig(**cfg), device=cuda).run(notes)
+    assert all(k.launches > 0 for k in kernels)
+    # On the CPU every wrapper runs its plain version.
+    plain = DedupPipeline(DedupConfig(**cfg | dict(verify_backend="numpy")),
+                          device="cpu").run(notes)
     assert np.array_equal(kern.signatures, plain.signatures)
     assert np.array_equal(kern.bands, plain.bands)
     assert np.array_equal(kern.labels, plain.labels)

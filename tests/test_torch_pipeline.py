@@ -12,7 +12,9 @@ import torch
 
 import repro.core.pipeline as ref_pipeline
 import repro.data as ref_data
+import repro_torch.core.pipeline as pipeline_mod
 import repro_torch.data as data
+from repro_torch.core import shingle
 from repro_torch.core.pipeline import DedupConfig, DedupPipeline
 
 
@@ -57,6 +59,14 @@ CONFIGS = {
         dict(exact_verification=False, fused_ingest=True,
              verify_backend="numpy", verify_batch="band"),
         dict(use_pallas=True, verify_backend="pallas")),
+    "estimate_byte": (
+        dict(byte_ingest=True, exact_verification=False,
+             verify_backend="numpy"), {}),
+    "exact_staged_kernel": (dict(use_pallas=True), {}),
+    "estimate_staged_kernel": (
+        dict(use_pallas=True, exact_verification=False,
+             verify_backend="numpy", verify_batch="band"),
+        dict(verify_backend="pallas")),
 }
 
 
@@ -81,6 +91,47 @@ def test_run_matches_reference(notes, name):
     assert np.array_equal(got_sims, want_sims)
     assert got.num_clusters == want.num_clusters > 0
     assert got.stats.pairs_evaluated == want.stats.pairs_evaluated
+
+
+def test_staged_kernel_config_maps_and_runs_k3_k4(notes, monkeypatch):
+    ref_cfg = ref_pipeline.DedupConfig(store="memory", use_pallas=True)
+    pipe = DedupPipeline.from_reference(
+        dataclasses.asdict(ref_cfg), ref_pipeline.DedupPipeline(ref_cfg).seeds,
+        device="cpu")
+    assert pipe.config.use_kernels and not pipe.config.fused_ingest
+    calls = []
+
+    def spy(name):
+        fn = getattr(pipeline_mod, name)
+
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(pipeline_mod, name, wrapped)
+
+    spy("ngram_hashes")
+    spy("minhash_signatures")
+    sig = pipe.compute_signatures(pipe.tokenize(notes))
+    assert calls == ["ngram_hashes", "minhash_signatures"]
+    assert sig.shape == (len(notes), 100)
+
+
+def test_compute_arrays_bytes_matches_reference(notes):
+    ref_cfg = ref_pipeline.DedupConfig(
+        store="memory", byte_ingest=True, exact_verification=False)
+    ref_pipe = ref_pipeline.DedupPipeline(ref_cfg)
+    pipe = DedupPipeline.from_reference(dataclasses.asdict(ref_cfg),
+                                        ref_pipe.seeds, device="cpu")
+    want_sig, want_bands = ref_pipe.compute_arrays_bytes(notes, 2048)
+    sig, bands = pipe.compute_arrays_bytes(notes, 2048)
+    assert np.array_equal(sig, want_sig) and np.array_equal(bands, want_bands)
+    assert set(pipe.stage_timings) == {"pack_s", "upload_s", "ingest_s"}
+    # The same bits as the host chain without stemming.
+    toks = [shingle.tokenize(t, do_stem=False) for t in notes]
+    host_sig, host_bands = pipe.compute_arrays(toks)
+    assert np.array_equal(sig, host_sig) and np.array_equal(bands, host_bands)
+    with pytest.raises(ValueError, match="max doc bytes"):
+        pipe.compute_arrays_bytes(notes, 64)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -137,13 +188,19 @@ def test_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("fields", [
-    dict(byte_ingest=True, exact_verification=False),
     dict(store="sqlite"),
-    dict(use_kernels=True),
 ])
 def test_later_slices_raise_not_implemented(fields):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DedupConfig(**fields)
+
+
+def test_byte_ingest_with_exact_verification_raises():
+    with pytest.raises(ValueError, match="exact Jaccard"):
+        DedupConfig(byte_ingest=True)
+    with pytest.raises(ValueError):
+        ref_pipeline.DedupConfig(store="memory", byte_ingest=True)
+    assert DedupConfig(byte_ingest=True, exact_verification=False).byte_ingest
 
 
 def test_bad_config_values_raise():
