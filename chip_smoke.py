@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-sm_90a), then runs four phases:
+sm_90a), then runs these phases:
 
 * Phase A, the main path: ``DedupPipeline.run`` with K1 (fused ingest)
   and K2 (pair agreement counts) on 16,384 synthetic clinical notes.
@@ -22,12 +22,24 @@ sm_90a), then runs four phases:
   ingest, through K3 (n-gram hashes), K4 (minhash) and K2; every output
   equals phase A's.  Then the ``kernels.ops`` entry point K3 -> K4 -> K5
   (band fold) on phase A's matrix.
+* Phase S, the sharded step (``core.dist_lsh``) on the card over an
+  NCCL process group of one rank, on phase A's packed matrix: stage 2
+  on the host merge with K2, then on the device with K7 (masked pair
+  counts).  Signatures equal phase A's, both runs' edge buffers are
+  equal, nothing overflows, the device run's labels and (a, b, sim)
+  list equal the host run's, and K7 equals its plain version on the
+  step's gathered edges.
 * Phase B, paper-scale kernels: K1, and K3 -> K4 -> K5, on a 1,048,576 x
   256 token matrix (a tenth of the paper's 10M-note corpus as one ingest
   chunk); K2 on 16,777,216 random pairs through ``SignatureVerifier``;
+  K7 on 16,777,216 pairs (indexed) and 4,194,304 pairs (pre-gathered);
   K6 and ``bytes_to_bands`` on 524,288 text-like rows of 2,048 bytes.
   Each kernel against its plain version bit for bit, and K4's
   signatures and K5's bands against K1's.
+* Phase S2, the sharded step at one ingest chunk: phase B's matrix with
+  65,536 rows made copies of others, device stage 2, the step timed
+  part by part (K1, each band group's prescreen, K7); every planted
+  copy's edge is found with count M.
 
 Every line but the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any mismatch or fault raises, so the
@@ -113,8 +125,19 @@ def main() -> int:
     ctx, k1_line, k2_line = phase_a(torch, clock_hz, notes)
     k6_line = phase_a2(torch, clock_hz, notes)
     k3_line, k4_line, k5_line = phase_a3(torch, clock_hz, notes, ctx)
-    lines = [k1_line, k2_line, k3_line, k4_line, k5_line, k6_line]
-    paper = phase_b(torch, clock_hz, k1_sass)
+    import torch.distributed as dist
+
+    # One NCCL group of one rank: the sharded step's collectives run on
+    # the card, and an in-memory store needs no network.
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        k7_line = phase_s(torch, clock_hz, ctx)
+        paper = phase_b(torch, clock_hz, k1_sass)
+    finally:
+        dist.destroy_process_group()
+    lines = [k1_line, k2_line, k3_line, k4_line, k5_line, k6_line, k7_line]
     for line in lines:
         line["paper_scale"] = paper[line["name"]]
     emit(kernels=lines)
@@ -204,6 +227,26 @@ def k2_bound(D: int, M: int, P: int, clock_hz: float) -> dict:
     nbytes = D * M * 4 + P * 8 * 2 + P * 4
     return _bound({"alu": P * M, "mul": 0, "either": P * M}, nbytes,
                   clock_hz) | {"gathered_bytes": P * 2 * M * 4}
+
+
+def k7_bound(torch, valid, M: int, clock_hz: float, a=None, b=None,
+             D: int = 0) -> dict:
+    """Least time for K7 on this data; M compares and M adds per valid
+    lane, and lanes that are not valid read no row.  Pre-gathered form
+    (no ``a``, ``b``): the two rows of every valid lane, the mask and the
+    counts, each once.  Indexed form: the distinct rows (indices clipped
+    to [0, D)) that the valid lanes gather from the (D, M) matrix, each
+    read once, plus both int32 indices, the mask and the counts."""
+    P, V = valid.shape[0], int(valid.sum())
+    if a is None:
+        rows, extra = V * 2, 0
+    else:
+        ids = torch.cat([a[valid], b[valid]]).to(torch.int64)
+        rows, extra = int(torch.unique(ids.clamp(0, D - 1)).numel()), 8
+    nbytes = rows * M * 4 + P * (1 + 4 + extra)
+    return _bound({"alu": V * M, "mul": 0, "either": V * M}, nbytes,
+                  clock_hz) | {"pairs": P, "valid_pairs": V, "rows_read": rows,
+                               "gathered_bytes": V * 2 * M * 4}
 
 
 def k3_bound(D: int, L: int, n: int, clock_hz: float) -> dict:
@@ -718,6 +761,216 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
     return k3_line, k4_line, k5_line
 
 
+# -- phase S: the sharded step ----------------------------------------------------
+
+def step_k7_inputs(torch, group: dict, D: int):
+    """K7's indexed inputs in one band group of a one-rank step: the
+    gathered edges, and the mask of those whose two ends are rows."""
+    edges = group["edges"]
+    a, b = edges[:, 0], edges[:, 1]
+    inside = (a >= 0) & (a < D) & (b >= 0) & (b < D)
+    return a, b, group["edge_mask"] & inside
+
+
+def phase_s(torch, clock_hz: float, ctx: dict) -> dict:
+    """``make_streamed_dedup_step`` and ``cluster_step_output`` on phase
+    A's packed matrix over the NCCL group: stage 2 on host (K2), then on
+    device (K7)."""
+    import numpy as np
+
+    from repro_torch.core import dist_lsh
+    from repro_torch.core.hashing import u32_to_numpy
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+
+    tokens, lengths, seeds = ctx["tokens"], ctx["lengths"], ctx["seeds"]
+    D, M = tokens.shape[0], seeds.shape[0]
+    mesh = dist_lsh.docs_mesh("cuda")
+    check(mesh.group is not None and mesh.n_dev == 1,
+          "the step runs on the NCCL group")
+    # Edge capacity D_loc x bands per group: no band can drop an edge.
+    base = dict(fused_ingest=True, band_groups=5, bucket_slack=1.0,
+                edge_capacity=D * 10)
+    # NCCL makes its communicator at the group's first collective: time
+    # that alone, so neither run's step time carries it.
+    t0 = time.perf_counter()
+    torch.distributed.all_reduce(torch.zeros(1, device="cuda"),
+                                 group=mesh.group)
+    torch.cuda.synchronize()
+    nccl_setup_s = time.perf_counter() - t0
+    runs = {}
+    for stage2 in ("host", "device"):
+        cfg = dist_lsh.DistLSHConfig(**base, stage2=stage2)
+        step = dist_lsh.make_streamed_dedup_step(cfg, mesh)
+        step(tokens, lengths, seeds)  # untimed: first calls of each op
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = k2.masked_launches = 0
+        t0 = time.perf_counter()
+        out = step(tokens, lengths, seeds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = dist_lsh.cluster_step_output(out, cfg, backend="kernel",
+                                           batch="band", num_docs=D)
+        t2 = time.perf_counter()
+        runs[stage2] = dict(
+            out=out, res=res, step_s=t1 - t0, cluster_step_output_s=t2 - t1,
+            verify_s=res.stats.verify_seconds,
+            launches={"fused_ingest": k1.launches, "pair_counts": k2.launches,
+                      "masked_pair_counts": k2.masked_launches})
+    host, dev = runs["host"], runs["device"]
+    check(host["launches"]["fused_ingest"] > 0
+          and host["launches"]["pair_counts"] > 0,
+          "K1 and K2 launched on the host-stage-2 step")
+    check(dev["launches"]["masked_pair_counts"] > 0,
+          "K7 launched on the device-stage-2 step")
+    check(np.array_equal(u32_to_numpy(host["out"]["sig"]),
+                         ctx["res"].signatures),
+          "sharded step signatures == phase A's")
+    for hg, dg in zip(host["out"]["groups"], dev["out"]["groups"],
+                      strict=True):
+        check(all(torch.equal(hg[k], dg[k]) for k in
+                  ("edges", "edge_mask", "prescreen_sims", "stats")),
+              "host and device runs' edge buffers are equal")
+    for run in runs.values():
+        check(run["res"].overflow == 0 and not run["res"].retried,
+              "no bucket or edge buffer overflowed")
+    hr, dr = host["res"], dev["res"]
+    check(np.array_equal(hr.labels(), dr.labels()),
+          "device stage 2 labels == host stage 2 labels")
+    check(hr.pairs == dr.pairs, "device stage 2 (a, b, sim) == host stage 2")
+    check(dr.device_scored > 0, "edges served from device scores")
+
+    # K7 on the step's own gathered edges, against its plain version and
+    # against the counts the step returned.
+    sig = dev["out"]["sig"]
+    inputs = [step_k7_inputs(torch, grp, D) for grp in dev["out"]["groups"]]
+    got = [k2.masked_indexed_pair_counts(sig, a, b, v) for a, b, v in inputs]
+    want = [k2.masked_indexed_pair_counts_plain(sig, a, b, v)
+            for a, b, v in inputs]
+    k7_err = max(int((g_ - w).abs().max()) for g_, w in zip(got, want))
+    check(k7_err == 0, "K7 == plain on the step's gathered edges")
+    check(all(torch.equal(g_, grp["device_match_counts"])
+              for g_, grp in zip(got, dev["out"]["groups"])),
+          "the step's device counts == K7 on its gathered edges")
+    k7_ms = cuda_ms(torch, lambda: [k2.masked_indexed_pair_counts(sig, *x)
+                                    for x in inputs], 20)
+    k7_plain_ms = cuda_ms(torch, lambda: [
+        k2.masked_indexed_pair_counts_plain(sig, *x) for x in inputs], 5)
+    valid = torch.cat([v for _, _, v in inputs])
+    summary = {}
+    for name, run in runs.items():
+        res = run["res"]
+        summary[name] = {
+            "step_s": run["step_s"],
+            "cluster_step_output_s": run["cluster_step_output_s"],
+            "verify_s": run["verify_s"],
+            "merge_s": run["cluster_step_output_s"] - run["verify_s"],
+            "notes_per_s": D / (run["step_s"] + run["cluster_step_output_s"]),
+            "launches": run["launches"], "num_edges": res.num_edges,
+            "pairs_evaluated": res.stats.pairs_evaluated,
+            "unions": res.stats.unions_done,
+            "device_scored": res.device_scored,
+            "host_rescored": res.host_rescored,
+            "device_stats": res.device_stats.tolist()}
+    emit(phase_s={"docs": D, "L": int(tokens.shape[1]),
+                  "config": base, "runs": summary,
+                  "nccl_setup_s": nccl_setup_s,
+                  "clusters": int((np.unique(dr.labels(), return_counts=True)[1]
+                                   >= 2).sum()),
+                  "k7_ms": k7_ms, "k7_launches": dev["launches"][
+                      "masked_pair_counts"], "host_match": True})
+    return {"name": "masked_indexed_pair_counts", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sigjaccard_masked.cu",
+            "replaces": "src/repro/kernels/sigjaccard.py:150",
+            "launches": dev["launches"]["masked_pair_counts"],
+            "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms,
+            "library_ms": None, "match": True,
+            "shape": {"D": D, "M": M, "P": int(valid.shape[0]),
+                      "launches": len(inputs)},
+            **k7_bound(torch, valid, M, clock_hz,
+                       torch.cat([a for a, _, _ in inputs]),
+                       torch.cat([b for _, b, _ in inputs]), D)}
+
+
+def phase_s2(torch, clock_hz, g, tokens, lengths, seeds, sig) -> dict:
+    """The sharded step (device stage 2) on phase B's matrix with 65,536
+    rows made copies of other rows, timed part by part."""
+    from repro_torch.core import dist_lsh
+    from repro_torch.kernels import sigjaccard as k7
+
+    D, M = sig.shape
+    n_copies = 1 << 16
+    # Sources keep at least n tokens, so no copy joins the empty rows'
+    # run; rows 0-15 (forced lengths) are neither source nor copy.
+    perm = torch.randperm(D - 16, generator=g, device="cuda") + 16
+    src, dst = perm[:n_copies], perm[n_copies : 2 * n_copies]
+    lengths[src] = lengths[src].clamp(min=8)
+    tokens[dst] = tokens[src]
+    lengths[dst] = lengths[src]
+    cfg = dist_lsh.DistLSHConfig(fused_ingest=True, band_groups=5,
+                                 bucket_slack=1.0, edge_capacity=D,
+                                 stage2="device")
+    mesh = dist_lsh.docs_mesh("cuda")
+    step = dist_lsh.make_streamed_dedup_step(cfg, mesh)
+    torch.cuda.synchronize()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    k7.masked_launches = 0
+    t0 = time.perf_counter()
+    out = step(tokens, lengths, seeds)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = k7.masked_launches
+    check(launches == cfg.band_groups, "K7 launched once per band group")
+    stats = torch.cat([grp["stats"] for grp in out["groups"]])
+    check(int(stats[:, 2].sum()) == 0, "paper-scale step: nothing overflowed")
+
+    # Every planted copy's edge, with count M, in every band group.
+    lo, hi = torch.minimum(src, dst), torch.maximum(src, dst)
+    planted = lo * D + hi
+    for grp in out["groups"]:
+        a, b, v = step_k7_inputs(torch, grp, D)
+        full = v & (grp["device_match_counts"] == M)
+        found = a[full].to(torch.int64) * D + b[full].to(torch.int64)
+        check(bool(torch.isin(planted, found).all()),
+              "every planted copy's edge is found with count M")
+    a, b, v = step_k7_inputs(torch, out["groups"][0], D)
+    got = k7.masked_indexed_pair_counts(out["sig"], a, b, v)
+    k7_err = int((got - k7.masked_indexed_pair_counts_plain(
+        out["sig"], a, b, v)).abs().max())
+    check(k7_err == 0, "paper-scale step: K7 == plain on its gathered edges")
+
+    # The step's parts, timed alone (the step's own private stages).
+    bg = cfg.bands_per_group
+    cap, doc_ids = dist_lsh._group_layout(D, 0, cfg, mesh)
+    sig_s, bands = dist_lsh._local_prepare(tokens, lengths, seeds, cfg)
+    prepare_ms = cuda_ms(torch, lambda: dist_lsh._local_prepare(
+        tokens, lengths, seeds, cfg), 3)
+    sig_k = sig_s[:, : cfg.verify_k]
+    prescreen_ms = [cuda_ms(torch, lambda j=j: dist_lsh._prescreen_scan(
+        bands[:, j * bg : (j + 1) * bg], doc_ids, sig_k, cfg, mesh, cap), 1)
+        for j in range(cfg.band_groups)]
+    k7_ms = cuda_ms(torch, lambda: k7.masked_indexed_pair_counts(
+        out["sig"], a, b, v), 10)
+    k7_plain_ms = cuda_ms(torch, lambda: k7.masked_indexed_pair_counts_plain(
+        out["sig"], a, b, v), 3)
+    edges = [int(grp["stats"][0, 0]) for grp in out["groups"]]
+    result = {"docs": D, "copies": n_copies, "step_s": step_s,
+              "docs_per_s": D / step_s, "prepare_k1_ms": prepare_ms,
+              "prescreen_ms_per_group": prescreen_ms,
+              "k7_ms_per_group": k7_ms, "k7_plain_ms_per_group": k7_plain_ms,
+              "k7_launches": launches, "k7_max_abs_err": k7_err,
+              "edges_per_group": edges,
+              "candidates_per_group": [int(grp["stats"][0, 1])
+                                       for grp in out["groups"]],
+              "resident_gib_before": base_gib, "peak_gib": peak_gib,
+              **{"k7_" + k: val for k, val in
+                 k7_bound(torch, v, M, clock_hz, a, b, D).items()}}
+    emit(phase_s2=result)
+    return result
+
+
 # -- phase B: paper-scale kernels -------------------------------------------------
 
 def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
@@ -791,7 +1044,12 @@ def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
     out = {"fused_ingest": k1_out, "pair_counts": k2_out}
     out.update(phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig,
                               bands, valid, n, r))
-    del tokens, lengths, sig, bands, valid, a, b
+    out["masked_indexed_pair_counts"] = phase_b_k7(torch, clock_hz, g, sig,
+                                                   a, b)
+    del bands, valid, a, b
+    out["masked_indexed_pair_counts"]["sharded_step"] = phase_s2(
+        torch, clock_hz, g, tokens, lengths, seeds, sig)
+    del tokens, lengths, sig
     torch.cuda.empty_cache()
     out["byte_token_hashes"] = phase_b_bytes(torch, clock_hz, g, seeds, n, r)
     emit(phase_b={"fused_ingest": k1_out, "pair_counts": k2_out,
@@ -851,6 +1109,63 @@ def phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig, bands, valid,
                       ("band_values", "k5")):
         out[name].update(plain_ms=timers[key].ms(), max_abs_err=err[key])
     emit(phase_b_staged=out)
+    return out
+
+
+def phase_b_k7(torch, clock_hz, g, sig, a, b) -> dict:
+    """K7 alone at paper scale, each form against its plain version.
+
+    Indexed: phase B's K2 pairs as int32, half of them valid, 1/16 with
+    a == b (K2's), 1/64 with an index outside [0, D).  Pre-gathered: the
+    rows of the first 4,194,304 of those pairs."""
+    from repro_torch.kernels import sigjaccard as k7
+
+    D, M = sig.shape
+    P = a.shape[0]
+    ai, bi = a.to(torch.int32), b.to(torch.int32)
+    out_of_range = torch.rand(P, generator=g, device="cuda") < 1 / 64
+    ai = torch.where(out_of_range & (torch.arange(P, device="cuda") % 2 == 0),
+                     ai - D, ai)
+    bi = torch.where(out_of_range & (torch.arange(P, device="cuda") % 2 == 1),
+                     bi + D, bi)
+    valid = torch.rand(P, generator=g, device="cuda") < 0.5
+    got = k7.masked_indexed_pair_counts(sig, ai, bi, valid)
+    ms = cuda_ms(torch, lambda: k7.masked_indexed_pair_counts(sig, ai, bi,
+                                                              valid), 5)
+    rows, timer, err = 1 << 20, ChunkTimer(torch), 0
+    for s in range(0, P, rows):
+        sl = slice(s, s + rows)
+        with timer:
+            want = k7.masked_indexed_pair_counts_plain(sig, ai[sl], bi[sl],
+                                                       valid[sl])
+        err = max(err, int((got[sl] - want).abs().max()))
+    check(err == 0, "paper-scale K7 (indexed) == plain")
+    check(bool((got[~valid] == 0).all()), "K7 counts 0 where not valid")
+    same = valid[: P // 16] & (ai[: P // 16] == bi[: P // 16])
+    check(bool((got[: P // 16][same] == M).all()), "K7 a == b pairs count M")
+
+    Q = 1 << 22
+    rows_a = sig[ai[:Q].to(torch.int64).clamp(0, D - 1)]
+    rows_b = sig[bi[:Q].to(torch.int64).clamp(0, D - 1)]
+    vq = valid[:Q]
+    got_rows = k7.masked_pair_counts(rows_a, rows_b, vq)
+    rows_ms = cuda_ms(torch, lambda: k7.masked_pair_counts(rows_a, rows_b, vq),
+                      5)
+    rows_plain_ms = cuda_ms(
+        torch, lambda: k7.masked_pair_counts_plain(rows_a, rows_b, vq), 2)
+    rows_err = int((got_rows - k7.masked_pair_counts_plain(
+        rows_a, rows_b, vq)).abs().max())
+    check(rows_err == 0, "paper-scale K7 (pre-gathered) == plain")
+    check(torch.equal(got_rows, got[:Q]),
+          "K7 pre-gathered == indexed on the same pairs")
+    out = {"shape": {"D": D, "M": M, "P": P}, "ms": ms,
+           "plain_ms": timer.ms(), "max_abs_err": err,
+           **k7_bound(torch, valid, M, clock_hz, ai, bi, D),
+           "pre_gathered": {"shape": {"P": Q, "M": M}, "ms": rows_ms,
+                            "plain_ms": rows_plain_ms, "max_abs_err": rows_err,
+                            **k7_bound(torch, vq, M, clock_hz)}}
+    emit(phase_b_k7=out)
+    del rows_a, rows_b
     return out
 
 

@@ -8,9 +8,11 @@ Port of ``repro.core.candidates`` (host numpy code)::
 Per band, the ``(band_value, doc)`` pairs are sorted lexicographically
 and the equal-value runs are the candidate groups (the paper's
 sort-based method, §3.6 method 2).  ``BandMatrixSource`` reads a dense
-in-memory ``(D, b, 2)`` band matrix, the ``DedupPipeline`` path.  Doc
-ids are int64 throughout, so global ids of chunked corpora past 2**31
-cannot wrap.
+in-memory ``(D, b, 2)`` band matrix, the ``DedupPipeline`` path.
+``ShardedEdgeSource`` reads the prescreened edge buffers of the sharded
+step (``dist_lsh``): each surviving edge is a two-member run, so the
+sharded path's host merge drives the same engine.  Doc ids are int64
+throughout, so global ids of chunked corpora past 2**31 cannot wrap.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ from dataclasses import dataclass
 from typing import Iterator, Protocol, runtime_checkable
 
 import numpy as np
+import torch
+
+from repro_torch.core.hashing import u32_to_numpy
 
 
 @dataclass(frozen=True)
@@ -113,6 +118,93 @@ class BandMatrixSource:
     def iter_bands(self) -> Iterator[BandRuns]:
         for j in range(self.num_bands):
             yield make_band_runs(j, self.bands[:, j, :], self._doc_ids)
+
+
+class ShardedEdgeSource:
+    """Source over the per-device prescreened edge buffers of ``dist_lsh``.
+
+    The sharded step emits bounded ``(head_doc, member_doc)`` edge
+    buffers, one per device (``(n_dev * e_cap, 2)`` after the gather in
+    rank order), with a validity mask.  Each surviving edge becomes a
+    two-member run, and ``iter_bands`` yields one ``BandRuns`` per
+    device buffer (``num_shards`` equal splits, as ``np.array_split``
+    cuts them).  Edges with an id outside ``[0, num_docs)`` -- padding
+    documents, empty slots, other chunks' documents -- are dropped, so
+    they can never union with real documents.
+    """
+
+    def __init__(self, edges: np.ndarray, edge_mask: np.ndarray | None = None,
+                 *, num_docs: int, num_shards: int = 1):
+        edges = np.asarray(edges).reshape(-1, 2)
+        if edge_mask is None:
+            mask = np.ones(len(edges), dtype=bool)
+        else:
+            mask = np.asarray(edge_mask).reshape(-1).astype(bool)
+        if len(mask) != len(edges):
+            raise ValueError(f"edge mask of {len(mask)} slots for "
+                             f"{len(edges)} edges")
+        self._num_docs = int(num_docs)
+        self._shards: list[np.ndarray] = []
+        for e, m in zip(np.array_split(edges, num_shards),
+                        np.array_split(mask, num_shards)):
+            e = e[m].astype(np.int64)
+            e = e[(e >= 0).all(axis=-1) & (e < self._num_docs).all(axis=-1)]
+            self._shards.append(e)
+
+    @classmethod
+    def from_device_buffers(cls, edges, edge_mask=None, *, num_docs: int,
+                            num_shards: int = 1,
+                            edge_offset: int = 0) -> "ShardedEdgeSource":
+        """Bring the step's edge buffers to the host as a source.
+
+        ``edges`` is a word tensor (int32 bits of uint32 ids) or a numpy
+        uint32 array; ``edge_mask`` a bool tensor or array.
+        ``edge_offset`` is subtracted from every id (in int64, so no id
+        wraps): the ``doc_id_base`` shift of a chunk of a larger corpus
+        back to its local rows.
+        """
+        edges = host_u32(edges).astype(np.int64) - int(edge_offset)
+        if edge_mask is not None:
+            edge_mask = host_array(edge_mask)
+        return cls(edges, edge_mask, num_docs=num_docs,
+                   num_shards=num_shards)
+
+    @property
+    def num_docs(self) -> int:
+        return self._num_docs
+
+    @property
+    def num_bands(self) -> int:
+        return len(self._shards)
+
+    @property
+    def num_edges(self) -> int:
+        return sum(len(e) for e in self._shards)
+
+    def iter_bands(self) -> Iterator[BandRuns]:
+        for i, e in enumerate(self._shards):
+            n = len(e)
+            # A made-up band value per edge: run j is edge j's doc pair.
+            vals = np.zeros((2 * n, 2), dtype=np.uint32)
+            vals[:, 0] = np.repeat(np.arange(n, dtype=np.uint32), 2)
+            starts = 2 * np.arange(n, dtype=np.int64)
+            yield BandRuns(band_id=i, sorted_vals=vals,
+                           sorted_docs=e.reshape(-1),
+                           run_starts=starts, run_ends=starts + 2)
+
+
+def host_u32(x) -> np.ndarray:
+    """A word tensor or a uint32 array as a numpy uint32 array."""
+    if isinstance(x, torch.Tensor):
+        return u32_to_numpy(x)
+    return np.asarray(x, dtype=np.uint32)
+
+
+def host_array(x) -> np.ndarray:
+    """A tensor (any device) or an array as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def pairs_in_runs(

@@ -13,6 +13,11 @@ SignatureVerifier    signature-agreement estimate m/M (paper §3.4) over
                      device) or ``kernel`` (K2, ``kernels.sigjaccard``)
 ExactJaccardVerifier exact set Jaccard (paper §2.1) vectorized over
                      sorted interned n-gram id arrays
+ShardedEdgeVerifier  full-signature re-verify of the ``dist_lsh`` prefix
+                     prescreen survivors (stage 2 of the sharded path);
+                     SignatureVerifier's estimator and backends
+DeviceScoredEdge-    stage 2 for ``stage2="device"``: serves the scores
+Verifier             K7 computed on the device, re-scores only the rest
 CallbackVerifier     wrapper around a scalar ``fn(a, b) -> float``
 ===================  =====================================================
 
@@ -32,7 +37,7 @@ from repro_torch.core import minhash
 from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
 from repro_torch.core.shingle import ngram_set
 from repro_torch.device import resolve_device
-from repro_torch.kernels.sigjaccard import pair_counts
+from repro_torch.kernels import sigjaccard
 
 BACKENDS = ("numpy", "torch", "kernel")
 
@@ -146,9 +151,98 @@ class SignatureVerifier(BatchVerifier):
         if self.backend == "torch":
             est = minhash.estimate_jaccard(sig[a], sig[b])
         else:
-            est = minhash.estimate_from_counts(pair_counts(sig, a, b),
-                                               sig.shape[1])
+            est = minhash.estimate_from_counts(
+                sigjaccard.pair_counts(sig, a, b), sig.shape[1])
         return est.cpu().numpy()
+
+
+class ShardedEdgeVerifier(SignatureVerifier):
+    """Stage 2 of the sharded path's two-stage verify (``dist_lsh``).
+
+    Stage 1, inside the step, keeps the edges whose ``verify_k``-word
+    signature prefix estimate clears ``edge_threshold -
+    prescreen_margin``; this verifier re-scores the survivors against
+    the full (D, M) signature matrix with ``SignatureVerifier``'s
+    estimator and backends, so thresholds and estimates cannot drift
+    between the sharded and host engines.
+    """
+
+    @classmethod
+    def from_step_output(cls, out, backend: str = "numpy",
+                         batch_pairs: int = 8192, *,
+                         device="cuda") -> "ShardedEdgeVerifier":
+        """Build from a step output's signatures (``out["sig"]``)."""
+        return cls(out["sig"], backend=backend, batch_pairs=batch_pairs,
+                   device=device)
+
+    def drift_count(self, pairs: np.ndarray,
+                    reference: BatchVerifier) -> int:
+        """#pairs whose estimate differs from ``reference``'s (expect 0)."""
+        pairs = np.asarray(pairs).reshape(-1, 2)
+        if pairs.size == 0:
+            return 0
+        return int(np.sum(self(pairs) != reference(pairs)))
+
+
+class DeviceScoredEdgeVerifier(ShardedEdgeVerifier):
+    """Stage 2 for the device-resident verify mode (``stage2="device"``).
+
+    The sharded step scores its edges on the device (K7, full-M
+    agreement counts), and the host merge registers ``counts / M`` with
+    ``add_scores``.  ``_verify_batch`` serves a pair from that registry
+    when it is there and re-scores the rest with the parent's
+    full-signature estimate: edges whose member row overflowed the
+    cross-shard row buffer, and root pairs the engine forms after
+    unions.  Both give the same float32 bits, so drift stays 0.
+
+    ``n_passthrough`` / ``n_rescored`` count how the pairs split.
+    """
+
+    def __init__(self, signatures, backend: str = "numpy",
+                 batch_pairs: int = 8192, *, device="cuda"):
+        super().__init__(signatures, backend=backend,
+                         batch_pairs=batch_pairs, device=device)
+        self._scores: dict[tuple[int, int], float] = {}
+        self.n_passthrough = 0
+        self.n_rescored = 0
+
+    def add_scores(self, pairs: np.ndarray, sims: np.ndarray) -> None:
+        """Register device-computed scores; a pair (a, b) in either order
+        is keyed (min, max), the engine's root-pair order."""
+        pairs = np.asarray(pairs).reshape(-1, 2).astype(np.int64)
+        keys = zip(pairs.min(axis=1).tolist(), pairs.max(axis=1).tolist())
+        self._scores.update(zip(keys, np.asarray(sims).reshape(-1).tolist()))
+
+    @property
+    def num_scores(self) -> int:
+        return len(self._scores)
+
+    def clear_scores(self) -> None:
+        """Drop the registry (the counters stay).
+
+        A registered edge is dead once its step has been fed: it is in
+        the engine's verified-sim cache, or its ends are co-clustered
+        and unions never split.
+        """
+        self._scores.clear()
+
+    def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
+        out = np.empty(len(pairs), dtype=np.float32)
+        missing = []
+        missing_at = []
+        for i, (a, b) in enumerate(pairs.tolist()):
+            s = self._scores.get((a, b))
+            if s is None:
+                missing.append((a, b))
+                missing_at.append(i)
+            else:
+                out[i] = s
+        self.n_passthrough += len(pairs) - len(missing)
+        if missing:
+            self.n_rescored += len(missing)
+            out[missing_at] = super()._verify_batch(
+                np.array(missing, dtype=np.int64))
+        return out
 
 
 class ExactJaccardVerifier(BatchVerifier):

@@ -2,6 +2,8 @@
 
 * ``fused_ingest`` (K1): packed tokens -> signatures, band values, validity.
 * ``sigjaccard.pair_counts`` (K2): per-pair signature agreement counts.
+* ``sigjaccard.masked_indexed_pair_counts`` and ``masked_pair_counts``
+  (K7): the same counts where a mask is set, for the sharded step.
 * ``ngram.ngram_hashes`` (K3): packed tokens -> n-gram hashes.
 * ``minhash.minhash_signatures`` (K4): n-gram hashes and a mask -> signatures.
 * ``bandfold.band_values`` (K5): signatures -> band values.

@@ -34,6 +34,9 @@ _EXPORTS = {
     "fused_ingest_launch": ([_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
                             _I),
     "pair_counts_launch": ([_P, _I64, _I, _P, _P, _I64, _P, _P], _I),
+    "masked_indexed_pair_counts_launch": ([_P, _I64, _I, _P, _P, _P, _I64, _P,
+                                           _P], _I),
+    "masked_pair_counts_launch": ([_P, _P, _I, _P, _I64, _P, _P], _I),
     "ngram_hashes_launch": ([_P, _P, _I64, _I, _I, _P], _I),
     "minhash_launch": ([_P, _P, _P, _P, _I64, _I, _I, _P], _I),
     "band_values_launch": ([_P, _P, _I64, _I, _I, _P], _I),

@@ -3,8 +3,10 @@
 Each wrapper launches its CUDA kernel for tensors on the card and runs
 its plain PyTorch version for tensors on the CPU.  K2 returns agreement
 counts (``pair_counts``); ``indexed_pair_estimate`` divides them by M,
-correctly rounded.  The reference's masked pair counts (K7) and flash
-attention (K8) are not ported yet.
+correctly rounded.  K7's two forms (``masked_indexed_pair_counts``,
+``masked_pair_counts``) return int32 counts as well, and
+``masked_indexed_pair_estimate`` divides them by M.  The reference's
+flash attention (K8) is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +15,13 @@ from repro_torch.kernels.byte_shingle import byte_token_hashes, bytes_to_bands
 from repro_torch.kernels.fused_ingest import fused_ingest
 from repro_torch.kernels.minhash import minhash_signatures
 from repro_torch.kernels.ngram import ngram_hashes
-from repro_torch.kernels.sigjaccard import indexed_pair_estimate, pair_counts
+from repro_torch.kernels.sigjaccard import (
+    indexed_pair_estimate,
+    masked_indexed_pair_counts,
+    masked_indexed_pair_estimate,
+    masked_pair_counts,
+    pair_counts,
+)
 
 __all__ = [
     "minhash_signatures",
@@ -24,4 +32,7 @@ __all__ = [
     "bytes_to_bands",
     "pair_counts",
     "indexed_pair_estimate",
+    "masked_indexed_pair_counts",
+    "masked_indexed_pair_estimate",
+    "masked_pair_counts",
 ]

@@ -9,7 +9,16 @@ so it runs where only the port is installed:
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
+from repro_torch.core import minhash, shingle
+from repro_torch.core.dist_lsh import (
+    DistLSHConfig,
+    cluster_step_output,
+    docs_mesh,
+    make_streamed_dedup_step,
+)
 from repro_torch.core.hashing import u32_from_numpy
 from repro_torch.core.minhash import estimate_from_counts
 from repro_torch.core.pipeline import DedupConfig, DedupPipeline
@@ -219,3 +228,156 @@ def test_byte_and_staged_runs_match_plain_path(cuda, fields, kernels):
     assert np.array_equal(kern.bands, plain.bands)
     assert np.array_equal(kern.labels, plain.labels)
     assert kern.pairs == plain.pairs
+
+
+def _masked_inputs(D, M, P, seed, device):
+    """K7 inputs: small word values (counts spread over 0..M), indices
+    in and out of [0, D) (-1 is INVALID as int32) on valid and invalid
+    lanes alike, half the lanes valid, 1/8 with a == b."""
+    rng = np.random.RandomState(seed)
+    sig = rng.randint(0, 3, size=(D, M)).astype(np.uint32)
+    a = rng.randint(-2, D + 2, size=P).astype(np.int32)
+    b = rng.randint(-2, D + 2, size=P).astype(np.int32)
+    edge = np.array([-1, D, D - 1, 0, -2**31, 2**31 - 1], dtype=np.int32)
+    a[: min(P, 6)] = edge[: min(P, 6)]
+    b[-min(P, 6):] = edge[: min(P, 6)]
+    b[: P // 8] = a[: P // 8]
+    valid = rng.rand(P) < 0.5
+    valid[: min(P, 3)] = True
+    return (u32_from_numpy(sig, device),
+            *(torch.from_numpy(x).to(device) for x in (a, b, valid)))
+
+
+@pytest.mark.parametrize("D,P", [(300, 1000), (5, 257), (1, 40)])
+def test_masked_indexed_pair_counts_kernel_matches_plain(cuda, D, P):
+    for M in range(1, 261):
+        sig, a, b, valid = _masked_inputs(D, M, P, seed=M, device=cuda)
+        k2.masked_launches = 0
+        got = k2.masked_indexed_pair_counts(sig, a, b, valid)
+        torch.cuda.synchronize()
+        assert k2.masked_launches == 1
+        want = k2.masked_indexed_pair_counts_plain(sig, a, b, valid)
+        assert torch.equal(got, want), M
+        assert bool((got[~valid] == 0).all())
+
+
+@pytest.mark.parametrize("P", [1000, 257, 1])
+def test_masked_pair_counts_kernel_matches_plain(cuda, P):
+    for M in range(1, 261):
+        sig, a, b, valid = _masked_inputs(300, M, P, seed=M + 1, device=cuda)
+        rows_a, rows_b = sig[a.long().clamp(0, 299)], sig[b.long().clamp(0, 299)]
+        k2.masked_launches = 0
+        got = k2.masked_pair_counts(rows_a, rows_b, valid)
+        torch.cuda.synchronize()
+        assert k2.masked_launches == 1
+        assert torch.equal(got, k2.masked_pair_counts_plain(rows_a, rows_b,
+                                                             valid)), M
+
+
+def test_masked_pair_counts_empty_and_all_invalid(cuda):
+    sig, a, b, valid = _masked_inputs(50, 100, 300, seed=9, device=cuda)
+    k2.masked_launches = 0
+    assert k2.masked_indexed_pair_counts(sig, a[:0], b[:0],
+                                         valid[:0]).shape == (0,)
+    assert k2.masked_pair_counts(sig[:0], sig[:0], valid[:0]).shape == (0,)
+    assert k2.masked_launches == 0  # nothing to launch for P = 0
+    none = torch.zeros_like(valid)
+    got = k2.masked_indexed_pair_counts(sig, a, b, none)
+    got_rows = k2.masked_pair_counts(sig, sig.flip(0), none[:50])
+    torch.cuda.synchronize()
+    assert k2.masked_launches == 2
+    assert not bool(got.any()) and not bool(got_rows.any())
+    est = k2.masked_indexed_pair_estimate(sig, a, b, valid).cpu().numpy()
+    counts = k2.masked_indexed_pair_counts_plain(sig, a, b, valid)
+    assert np.array_equal(est, counts.cpu().numpy().astype(np.float32)
+                          / np.float32(100))
+
+
+@pytest.mark.parametrize("stage2", ["host", "device"])
+def test_sharded_step_on_card_matches_cpu(cuda, stage2):
+    notes, _ = inject_near_duplicates(make_i2b2_like(200, seed=0), 100,
+                                      seed=1)
+    packed = shingle.pack_documents([shingle.tokenize(t) for t in notes])
+    args = (packed.tokens, packed.lengths, minhash.default_seeds(100))
+    cfg = DistLSHConfig(fused_ingest=True, band_groups=5, stage2=stage2,
+                        edge_capacity=4096, bucket_slack=16.0)
+    k1.launches = k2.masked_launches = 0
+    card = make_streamed_dedup_step(cfg, docs_mesh(cuda))(*args)
+    torch.cuda.synchronize()
+    assert k1.launches == 1
+    assert k2.masked_launches == (cfg.band_groups if stage2 == "device" else 0)
+    plain = make_streamed_dedup_step(cfg, docs_mesh("cpu"))(*args)
+    assert torch.equal(card["sig"].cpu(), plain["sig"])
+    for cg, pg in zip(card["groups"], plain["groups"], strict=True):
+        assert set(cg) == set(pg)
+        for key, val in cg.items():
+            if key != "band_start":
+                assert val.device.type == "cuda"
+                assert torch.equal(val.cpu(), pg[key]), key
+    got = cluster_step_output(card, cfg, backend="kernel",
+                              num_docs=len(notes))
+    want = cluster_step_output(plain, cfg, num_docs=len(notes))
+    assert np.array_equal(got.labels(), want.labels())
+    assert got.pairs == want.pairs and got.num_edges > 0
+    assert (got.device_scored, got.host_rescored) == \
+        (want.device_scored, want.host_rescored)
+
+
+def _nccl_worker(rank: int, world: int, init_file: str) -> None:
+    """One rank of the NCCL step, held against the same step on the CPU
+    over a gloo group of the same processes."""
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        notes, _ = inject_near_duplicates(make_i2b2_like(300, seed=0), 100,
+                                          seed=1)
+        # Shuffled, so duplicates land on different ranks.
+        order = np.random.RandomState(2).permutation(len(notes))
+        packed = shingle.pack_documents(
+            [shingle.tokenize(notes[i]) for i in order])
+        args = (packed.tokens, packed.lengths, minhash.default_seeds(100))
+        for stage2, rc in (("host", 1024), ("device", 1024), ("device", 1)):
+            cfg = DistLSHConfig(fused_ingest=True, band_groups=5,
+                                stage2=stage2, sig_row_capacity=rc,
+                                edge_capacity=4096, bucket_slack=16.0)
+            k2.masked_launches = 0
+            card = make_streamed_dedup_step(cfg, docs_mesh("cuda"))(*args)
+            torch.cuda.synchronize()
+            if stage2 == "device":  # both forms, in every band group
+                assert k2.masked_launches == 2 * cfg.band_groups
+            plain = make_streamed_dedup_step(
+                cfg, docs_mesh("cpu", group=gloo))(*args)
+            assert torch.equal(card["sig"].cpu(), plain["sig"])
+            for cg, pg in zip(card["groups"], plain["groups"], strict=True):
+                for key, val in cg.items():
+                    if key != "band_start":
+                        assert torch.equal(val.cpu(), pg[key]), key
+            if rank == 0:
+                got = cluster_step_output(card, cfg, backend="kernel",
+                                          num_docs=len(notes))
+                want = cluster_step_output(plain, cfg, num_docs=len(notes))
+                assert np.array_equal(got.labels(), want.labels())
+                assert got.pairs == want.pairs and got.num_edges > 0
+                assert (got.device_scored, got.host_rescored,
+                        got.row_overflow) == (want.device_scored,
+                                              want.host_rescored,
+                                              want.row_overflow)
+                if stage2 == "device":
+                    assert got.device_scored > 0
+                    assert (got.row_overflow > 0) == (rc == 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_step_over_nccl_matches_gloo(cuda, tmp_path):
+    """Several ranks, one card each: all_to_all, all_gather and
+    all_reduce over NCCL, and both K7 forms, against the same program
+    on the CPU over gloo."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = 4 if cards >= 4 else 2
+    mp.start_processes(_nccl_worker, args=(world, str(tmp_path / "pg")),
+                       nprocs=world, join=True, start_method="spawn")
