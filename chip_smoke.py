@@ -39,7 +39,19 @@ sm_90a), then runs these phases:
 * Phase S2, the sharded step at one ingest chunk: phase B's matrix with
   65,536 rows made copies of others, device stage 2, the step timed
   part by part (K1, each band group's prescreen, K7); every planted
-  copy's edge is found with count M.
+  copy's edge is found with count M.  Phase B also holds
+  ``kernels.ops.pair_estimate`` (K7's pre-gathered form, every lane
+  valid) against its plain version and K2's estimates.
+* Phase F, K8 (flash attention) against its plain version: float32 at
+  test_kernels.py's four shapes to 3e-5, bf16 at h2o-danube's,
+  olmo's and gemma's prefill shapes to a bound of bf16's rounding (and
+  to 2e-2), each bf16 shape timed beside the plain version and
+  ``scaled_dot_product_attention``.
+* Phase M, serving h2o-danube-1.8b at full width: in float32, K8
+  against ``blockwise_attention`` in every layer of a 6,144-token
+  prefill and end to end at two layers; in bf16, ``serve_batch``
+  (4 x 512 prompt tokens + 32, and 1 x 6,144 + 8) and ``ServeEngine``
+  (8 requests over 4 slots), K8 launching once per layer per prefill.
 
 Every line but the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any mismatch or fault raises, so the
@@ -48,6 +60,7 @@ device, or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -140,6 +153,14 @@ def main() -> int:
     lines = [k1_line, k2_line, k3_line, k4_line, k5_line, k6_line, k7_line]
     for line in lines:
         line["paper_scale"] = paper[line["name"]]
+    lines.append({"name": "pair_estimate", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/sigjaccard_masked.cu",
+                  "replaces": "src/repro/kernels/sigjaccard.py:53",
+                  "library_ms": None, "match": True,
+                  **paper["pair_estimate"]})
+    torch.cuda.empty_cache()
+    k8_shapes = phase_f(torch, clock_hz)
+    lines.append(phase_m(torch, k8_shapes))
     emit(kernels=lines)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -971,6 +992,385 @@ def phase_s2(torch, clock_hz, g, tokens, lengths, seeds, sig) -> dict:
     return result
 
 
+# -- phase F: K8 against its plain version ----------------------------------------
+
+# test_kernels.py's four float32 shapes (B, S, H, Hkv, Dh, window) and the
+# prefills of three head widths in bf16: h2o-danube's long prompt (past
+# its window), olmo's and gemma's.
+K8_F32_SHAPES = [(2, 64, 8, 2, 16, None), (1, 100, 4, 4, 8, None),
+                 (2, 96, 8, 2, 16, 24), (1, 37, 6, 2, 16, None)]
+K8_BF16_SHAPES = {"h2o-danube-1.8b": (1, 6144, 32, 8, 80, 4096),
+                  "olmo-1b": (1, 2048, 16, 16, 128, None),
+                  "gemma-7b": (1, 1024, 16, 16, 256, None)}
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
+FP32_LANES = 128            # FP32 FMA lanes per SM and clock
+
+
+def unmasked_pairs(torch, Sq: int, Skv: int, causal: bool,
+                   window: int | None) -> int:
+    """(q, k) pairs per head that the causal and window masks leave."""
+    q = torch.arange(Sq, dtype=torch.int64)
+    hi = q.clamp(max=Skv - 1) if causal else torch.full_like(q, Skv - 1)
+    lo = (q - window + 1).clamp(min=0) if window is not None else 0 * q
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def k8_bound(torch, shape, dtype, clock_hz: float) -> dict:
+    """Least time for K8 (causal): q, k, v and the output each moved once,
+    against 4 Dh flops per unmasked (q, k) pair and head at the card's peak
+    for the dtype -- the tensor cores' dense bf16 rate, or for IEEE float32
+    every FP32 lane doing an FMA each clock at the maximum SM clock."""
+    B, S, H, Hkv, Dh, window = shape
+    pairs = unmasked_pairs(torch, S, S, True, window)
+    flops = 4 * Dh * pairs * H * B
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = elt * B * S * (H * Dh * 2 + Hkv * Dh * 2)
+    peak = (BF16_TENSOR_FLOPS if dtype == torch.bfloat16
+            else SMS * FP32_LANES * 2 * clock_hz)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "flops": flops,
+            "bytes": nbytes, "unmasked_pairs_per_head": pairs}
+
+
+def sdpa_call(torch, q, k, v, window: int | None):
+    """``scaled_dot_product_attention`` on the same inputs, as a yardstick:
+    (B, H, S, D) views, GQA, and a boolean causal-and-window mask."""
+    import torch.nn.functional as F
+
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def sdpa_backends(torch, call) -> list[str]:
+    """The SDPA backends that accept this call, in PyTorch's order of
+    preference: the default call runs on the first."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    accepted = []
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH"):
+        # A backend that refuses the call warns why, then raises.
+        with sdpa_kernel(getattr(SDPBackend, name)), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            try:
+                call()
+            except RuntimeError:  # a probe: this backend refuses the call
+                continue
+        accepted.append(name)
+    torch.cuda.synchronize()
+    return accepted
+
+
+def bf16_bound(want, vbar):
+    """How far K8 may lie from its plain version in bf16, element by element.
+
+    Both round p = exp(s - m) to bf16 (relative error <= 2**-9) against the
+    running max m of the moment, which depends on the order of the tiles,
+    so their sums differ by at most 2**-8 of sum_j p_j |v_j| / l = ``vbar``
+    (the plain version run on |v|); both round the output to bf16, at most
+    one unit in the last place of ``want`` (<= 2**-7 |want|) apart; 1e-5
+    takes the float32 sums in another order."""
+    return 2**-7 * want.abs() + 2**-8 * vbar + 1e-5
+
+
+def phase_f(torch, clock_hz: float) -> dict:
+    """K8 against ``flash_attention_plain`` on the card: float32 to 3e-5;
+    bf16 to ``bf16_bound`` on unit-normal inputs, and to the coarser
+    atol = rtol = 2e-2.  A mask off by one key (window + 1; every query
+    one position later) must exceed the bound: the printed ratios show by
+    how much.  Timed beside its plain version and SDPA at the bf16 prefill
+    shapes."""
+    from repro_torch.kernels import flash_attention as k8
+    from repro_torch.models.attention import blockwise_attention
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+
+    def inputs(B, S, H, Hkv, Dh, dtype):
+        return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                     for shape in ((B, S, H, Dh), (B, S, Hkv, Dh),
+                                   (B, S, Hkv, Dh)))
+
+    f32 = []
+    for shape in K8_F32_SHAPES:
+        q, k, v = inputs(*shape[:5], torch.float32)
+        got = k8.flash_attention(q, k, v, window=shape[5])
+        want = k8.flash_attention_plain(q, k, v, window=shape[5])
+        check(torch.allclose(got, want, atol=3e-5, rtol=0),
+              f"K8 float32 == plain to 3e-5 at {shape}")
+        f32.append({"shape": shape,
+                    "max_abs_err": float((got - want).abs().max())})
+    bf16 = {}
+    for arch, shape in K8_BF16_SHAPES.items():
+        q, k, v = inputs(*shape[:5], torch.bfloat16)
+        window = shape[5]
+        got = k8.flash_attention(q, k, v, window=window).float()
+        want = k8.flash_attention_plain(q, k, v, window=window).float()
+        tol = bf16_bound(want, k8.flash_attention_plain(
+            q, k, v.abs(), window=window).float())
+
+        def over(x):  # the largest error in units of the bound
+            return float(((x.float() - want).abs() / tol).max())
+
+        check(over(got) <= 1.0 and torch.allclose(got, want, atol=2e-2,
+                                                  rtol=2e-2),
+              f"K8 bf16 == plain to bf16_bound and 2e-2 at {arch}'s {shape}")
+        mutants = {"query_one_later": over(blockwise_attention(
+            q, k, v, window=window, q_offset=1))}
+        if window is not None:
+            mutants["window_plus_1"] = over(k8.flash_attention_plain(
+                q, k, v, window=window + 1))
+        call = sdpa_call(torch, q, k, v, window)
+        lib = call().transpose(1, 2).float()
+        bf16[arch] = {
+            "shape": shape, "max_abs_err": float((got - want).abs().max()),
+            "median_abs_want": float(want.abs().median()),
+            "median_bound": float(tol.median()),
+            "max_err_over_bound": over(got),
+            "mutants_max_err_over_bound": mutants,
+            "ms": cuda_ms(torch, lambda: k8.flash_attention(
+                q, k, v, window=window), 5),
+            "plain_ms": cuda_ms(torch, lambda: k8.flash_attention_plain(
+                q, k, v, window=window), 2),
+            "library_ms": cuda_ms(torch, call, 5),
+            "library_backends": sdpa_backends(torch, call),
+            "library_max_abs_err": float((lib - want).abs().max()),
+            **k8_bound(torch, shape, torch.bfloat16, clock_hz)}
+        del q, k, v, got, want, tol, lib, call
+    out = {"float32": f32, "bf16": bf16}
+    emit(phase_f=out)
+    return out
+
+
+# -- phase M: serving h2o-danube-1.8b at full width -------------------------------
+
+M_ARCH = "h2o-danube-1.8b"
+M_LONG_PROMPT = 6144            # past the 4,096-token window
+M_ENGINE_REQUESTS = 8
+M_GATE_LAYERS = 2               # depth of the end-to-end float32 gate
+
+
+@contextlib.contextmanager
+def float64_throughout(torch):
+    """While open, RMSNorm, RoPE and the plain attention of the model stack
+    compute in float64.  The port, as the reference, computes them in
+    float32 whatever its inputs; these stand-ins keep the input's dtype,
+    so a float64 model runs in float64 from embedding to logits."""
+    from repro_torch.models import blocks, layers
+
+    def rmsnorm(x, weight=None, eps=1e-6):
+        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+        return x if weight is None else x * (1.0 + weight)
+
+    def apply_rope(x, positions, theta=10_000.0):
+        half = x.shape[-1] // 2
+        freqs = 1.0 / theta ** (torch.arange(half, dtype=torch.float64,
+                                             device=x.device) / half)
+        ang = positions[..., None].double() * freqs
+        if x.dim() == ang.dim() + 1:
+            ang = ang[..., None, :]
+        x1, x2 = torch.chunk(x, 2, dim=-1)
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+    def attention(q, k, v, *, causal=True, window=None):
+        check(q.dtype == k.dtype == v.dtype == torch.float64,
+              "float64 attention gets float64 q, k, v")
+        S, Dh = q.shape[1], q.shape[3]
+        g = q.shape[2] // k.shape[2]
+        kt = k.repeat_interleave(g, dim=2).transpose(1, 2)  # (B, H, S, Dh)
+        vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
+        pos = torch.arange(S, device=q.device)
+        out = []
+        for q0 in range(0, S, 1024):  # 1,024 query rows at a time
+            qpos = pos[q0:q0 + 1024, None]
+            seen = pos[None, :] <= qpos if causal else pos[None, :] >= 0
+            if window is not None:
+                seen = seen & (pos[None, :] > qpos - window)
+            s = q[:, q0:q0 + 1024].transpose(1, 2) @ kt.transpose(2, 3)
+            w = (s * Dh**-0.5).masked_fill(~seen, float("-inf")).softmax(-1)
+            out.append((w @ vt).transpose(1, 2))
+        return torch.cat(out, dim=1)
+
+    saved = layers.rmsnorm, blocks.apply_rope, blocks.blockwise_attention
+    layers.rmsnorm, blocks.apply_rope, blocks.blockwise_attention = (
+        rmsnorm, apply_rope, attention)
+    try:
+        yield
+    finally:
+        layers.rmsnorm, blocks.apply_rope, blocks.blockwise_attention = saved
+
+
+def phase_m(torch, k8_shapes: dict) -> dict:
+    """The serving slice at h2o-danube-1.8b's full width.  Float32, on a
+    6,144-token prefill: in each of the 24 layers K8's output agrees with
+    ``blockwise_attention``'s on the same q, k, v to 1e-3 of its largest
+    magnitude, and at ``M_GATE_LAYERS`` layers so do the last-position
+    logits of the two paths.
+    bf16: ``serve_batch`` (B 4 x 512 + 32 tokens; B 1 x 6,144 + 8 tokens)
+    and ``ServeEngine`` (8 requests, 4 slots), K8 launching once per layer
+    per prefill.  Returns K8's line for the kernels table."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k8
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.attention import blockwise_attention
+    from repro_torch.serving import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # IEEE float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config(M_ARCH)
+    n_layers, vocab = base.n_layers, base.vocab_size
+    rng = np.random.RandomState(17)
+    long_prompt = rng.randint(2, vocab, size=(1, M_LONG_PROMPT)).astype(np.int32)
+    out = {"arch": M_ARCH}
+
+    def gen():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        return g
+
+    def last_logits(cfg, model, flash: bool):
+        tokens = torch.as_tensor(long_prompt, device="cuda")
+        with torch.inference_mode():
+            _, logits = lm.prefill(cfg.with_(use_flash_attention=flash),
+                                   model, tokens, None)
+        return logits.float()
+
+    # Correctness at full width in float32.  At the reference's init the
+    # 24-layer stack amplifies float32 rounding until two correct paths
+    # disagree in full (the float64 run below shows it), so the gates
+    # are per layer on the same inputs, and end to end at a cut depth.
+    cfg32 = base.with_(param_dtype="float32", compute_dtype="float32")
+    model = lm.init(cfg32, gen(), device="cuda")
+    layer_rel = []
+
+    def k8_beside_plain(q, k, v, *, causal, window):
+        got = k8.flash_attention(q, k, v, causal=causal, window=window)
+        want = blockwise_attention(q, k, v, causal=causal, window=window)
+        layer_rel.append(float((got - want).abs().max() / want.abs().max()))
+        return got
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    blocks.flash_attention = k8_beside_plain
+    try:
+        k8.launches = 0
+        flash = last_logits(cfg32, model, True)
+    finally:
+        blocks.flash_attention = k8.flash_attention
+    check(k8.launches == n_layers, "float32 prefill: K8 once per layer")
+    check(bool(torch.isfinite(flash).all()) and flash.shape == (1, 1, vocab),
+          "float32 logits finite, (1, 1, V)")
+    check(max(layer_rel) <= 1e-3,
+          f"float32 full width: K8 == plain attention to 1e-3 in every "
+          f"layer ({max(layer_rel)})")
+    plain = last_logits(cfg32, model, False)
+    layers = model.layers
+    model.layers = layers[:M_GATE_LAYERS]
+    cut = rel(last_logits(cfg32, model, True), last_logits(cfg32, model, False))
+    model.layers = layers
+    check(cut <= 1e-3, f"float32 full width, {M_GATE_LAYERS} layers: K8 "
+          f"logits == plain to 1e-3 ({cut})")
+    out["float32"] = {
+        "params": sum(p.numel() for p in model.parameters()),
+        "attention_rel_diff_per_layer": layer_rel,
+        f"rel_logits_diff_{M_GATE_LAYERS}_layers": cut,
+        f"rel_logits_diff_{n_layers}_layers": rel(flash, plain),
+        "max_abs_logit": float(plain.abs().max()),
+        "greedy_k8": serve_batch(cfg32.with_(use_flash_attention=True), model,
+                                 long_prompt, 8)[0][0].tolist(),
+        "greedy_plain": serve_batch(cfg32, model, long_prompt, 8)[0][0].tolist()}
+    # The same weights in float64, norms, RoPE and attention included:
+    # how far float32 rounding alone moves the logits.
+    model.double()
+    with float64_throughout(torch):
+        wide = last_logits(base.with_(param_dtype="float64",
+                                      compute_dtype="float64"), model, False)
+    out["float32"]["rel_logits_diff_vs_float64"] = {
+        "k8": rel(flash, wide), "plain": rel(plain, wide)}
+    del model, layers, flash, plain, wide
+    torch.cuda.empty_cache()
+
+    # The slice in bf16, through K8.
+    cfg = base.with_(use_flash_attention=True)
+    model = lm.init(cfg, gen(), device="cuda")
+    serve_batch(cfg, model, long_prompt[:, :64], 2)  # warm-up, untimed
+    runs, launches = {}, 0
+    for name, prompts, new in (
+            ("b4_p512_n32", rng.randint(2, vocab, size=(4, 512)), 32),
+            ("b1_p6144_n8", long_prompt, 8)):
+        torch.cuda.reset_peak_memory_stats()
+        k8.launches = 0
+        toks, stats = serve_batch(cfg, model, prompts.astype(np.int32), new)
+        check(k8.launches == n_layers, f"{name}: K8 launched once per layer")
+        check(toks.shape == (prompts.shape[0], new)
+              and bool(((toks >= 0) & (toks < vocab)).all()),
+              f"{name}: tokens in the vocabulary")
+        launches += k8.launches
+        runs[name] = {**stats, "k8_launches": k8.launches,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "tokens": toks[0].tolist()}
+    flash_bf = last_logits(cfg, model, True)
+    plain_bf = last_logits(cfg, model, False)
+    check(bool(torch.isfinite(flash_bf).all()), "bf16 logits finite")
+    out["bf16"] = {"runs": runs, "rel_logits_diff_vs_plain": float(
+        (flash_bf - plain_bf).abs().max() / plain_bf.abs().max())}
+
+    # ServeEngine: 8 seeded requests of 64 to 1,024 tokens over 4 slots.
+    eng = ServeEngine(cfg, model, slots=4, cache_len=1280, eos_id=-1)
+    for n in rng.randint(64, 1025, size=M_ENGINE_REQUESTS):
+        eng.submit(rng.randint(2, vocab, size=n).astype(np.int32),
+                   max_tokens=16)
+    k8.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(len(done) == M_ENGINE_REQUESTS
+          and all(len(r.out) == 16 for r in done),
+          "ServeEngine: every request finished with 16 tokens")
+    check(k8.launches == n_layers * eng.stats.prefills,
+          "ServeEngine: K8 once per layer per admission")
+    launches += k8.launches
+    out["engine"] = {"requests": len(done), "tokens_out": eng.stats.tokens_out,
+                     "steps": eng.stats.steps, "prefills": eng.stats.prefills,
+                     "mean_occupancy": eng.stats.mean_occupancy,
+                     "wall_s": wall_s,
+                     "tok_per_s": eng.stats.tokens_out / wall_s,
+                     "k8_launches": k8.launches}
+    del model, eng
+    torch.cuda.empty_cache()
+    emit(phase_m=out)
+
+    main_shape = k8_shapes["bf16"][M_ARCH]
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:35",
+            "launches": launches, "match": True,
+            **{k: main_shape[k] for k in keep},
+            "library_backends": main_shape["library_backends"],
+            "other_shapes": {a: {k: r[k] for k in keep}
+                             for a, r in k8_shapes["bf16"].items()
+                             if a != M_ARCH}}
+
+
 # -- phase B: paper-scale kernels -------------------------------------------------
 
 def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
@@ -1041,7 +1441,9 @@ def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
     k2_out = {"shape": {"D": D, "M": M, "P": P}, "ms": k2_ms,
               "plain_ms": k2_plain_ms, "max_abs_err": k2_err,
               **k2_bound(D, M, P, clock_hz)}
-    out = {"fused_ingest": k1_out, "pair_counts": k2_out}
+    out = {"fused_ingest": k1_out, "pair_counts": k2_out,
+           "pair_estimate": phase_b_pair_estimate(torch, clock_hz, sig, a, b,
+                                                  sims)}
     out.update(phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig,
                               bands, valid, n, r))
     out["masked_indexed_pair_counts"] = phase_b_k7(torch, clock_hz, g, sig,
@@ -1109,6 +1511,43 @@ def phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig, bands, valid,
                       ("band_values", "k5")):
         out[name].update(plain_ms=timers[key].ms(), max_abs_err=err[key])
     emit(phase_b_staged=out)
+    return out
+
+
+def phase_b_pair_estimate(torch, clock_hz, sig, a, b, sims) -> dict:
+    """``kernels.ops.pair_estimate`` (K7's pre-gathered counts, every lane
+    valid, / M) on the rows of phase B's first 4,194,304 K2 pairs: equal
+    bit for bit to its plain version and to K2's estimates of those pairs
+    through ``SignatureVerifier``."""
+    import numpy as np
+
+    from repro_torch.core.minhash import estimate_from_counts
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sigjaccard as k7
+
+    Q, M = 1 << 22, sig.shape[1]
+    rows_a, rows_b = sig[a[:Q]], sig[b[:Q]]
+    every = torch.ones(Q, dtype=torch.bool, device="cuda")
+
+    def plain():
+        return estimate_from_counts(
+            k7.masked_pair_counts_plain(rows_a, rows_b, every), M)
+
+    before = k7.masked_launches
+    got = ops.pair_estimate(rows_a, rows_b)
+    launches = k7.masked_launches - before
+    check(launches == 1, "pair_estimate launched K7 once")
+    want = plain()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), "pair_estimate == its plain version")
+    check(np.array_equal(got.cpu().numpy().view(np.uint32),
+                         sims[:Q].view(np.uint32)),
+          "pair_estimate == K2's estimates through SignatureVerifier")
+    out = {"shape": {"P": Q, "M": M}, "launches": launches,
+           "ms": cuda_ms(torch, lambda: ops.pair_estimate(rows_a, rows_b), 5),
+           "plain_ms": cuda_ms(torch, plain, 2), "max_abs_err": err,
+           **k7_bound(torch, every, M, clock_hz)}
+    emit(phase_b_pair_estimate=out)
     return out
 
 

@@ -1,0 +1,28 @@
+"""h2o-danube-1.8b [dense] — llama+mistral mix with sliding-window attention.
+
+24L d_model=2560 32H (GQA kv=8) d_ff=6912 vocab=32000, SWA window 4096
+[arXiv:2401.16818; hf].  SWA => sub-quadratic => runs long_500k (ring
+KV cache of the window size).
+"""
+from repro_torch.models.config import ModelConfig
+
+ID = "h2o-danube-1.8b"
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name=ID, family="dense",
+        n_layers=24, d_model=2560, n_heads=32, n_kv_heads=8,
+        d_ff=6912, vocab_size=32_000,
+        mlp="swiglu", norm="rmsnorm", sliding_window=4096,
+        tie_embeddings=False,
+        subquadratic=True,
+    )
+
+
+def reduced() -> ModelConfig:
+    return config().with_(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=256, sliding_window=8,
+        param_dtype="float32", compute_dtype="float32", remat="none",
+    )

@@ -1,11 +1,13 @@
 """Core of the port: hashing, shingling, minhash, LSH, engine, pipeline.
 
-The public names mirror ``repro.core``'s for the ported slice.
+The public names are those of ``repro.core.__all__`` that the port has
+ported, and no others.
 """
 from repro_torch.core.candidates import (
     BandMatrixSource,
     CandidateSource,
     ShardedEdgeSource,
+    candidate_pairs,
 )
 from repro_torch.core.dist_lsh import (
     DistLSHConfig,
@@ -21,12 +23,13 @@ from repro_torch.core.engine import (
     ClusterAccumulator,
     ClusterStats,
     cluster_source,
-    merge_cluster_rounds,
 )
+from repro_torch.core.lsh import LSHParams, candidate_probability
 from repro_torch.core.pipeline import DedupConfig, DedupPipeline, DedupResult
 from repro_torch.core.unionfind import ThresholdUnionFind
 from repro_torch.core.verify import (
     BatchVerifier,
+    CallbackVerifier,
     DeviceScoredEdgeVerifier,
     ExactJaccardVerifier,
     ShardedEdgeVerifier,
@@ -34,12 +37,14 @@ from repro_torch.core.verify import (
 )
 
 __all__ = [
-    "BandMatrixSource", "CandidateSource", "ClusterAccumulator",
-    "ClusterStats", "cluster_source", "merge_cluster_rounds",
-    "DedupConfig", "DedupPipeline", "DedupResult", "ThresholdUnionFind",
-    "BatchVerifier", "ExactJaccardVerifier", "SignatureVerifier",
-    "ShardedEdgeSource", "ShardedEdgeVerifier", "DeviceScoredEdgeVerifier",
+    "DedupConfig", "DedupPipeline", "DedupResult", "LSHParams",
+    "candidate_probability", "ThresholdUnionFind",
     "DistLSHConfig", "ShardedClusterResult", "StepFeed",
-    "cluster_step_output", "docs_mesh", "feed_step_groups",
-    "make_dedup_step", "make_streamed_dedup_step",
+    "cluster_step_output", "feed_step_groups", "make_dedup_step",
+    "make_streamed_dedup_step", "docs_mesh",
+    "BandMatrixSource", "CandidateSource", "ShardedEdgeSource",
+    "candidate_pairs",
+    "ClusterAccumulator", "ClusterStats", "cluster_source",
+    "BatchVerifier", "CallbackVerifier", "DeviceScoredEdgeVerifier",
+    "ExactJaccardVerifier", "ShardedEdgeVerifier", "SignatureVerifier",
 ]

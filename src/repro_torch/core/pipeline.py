@@ -16,6 +16,7 @@ exact Jaccard or the signature estimate (``numpy``, ``torch`` or
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -57,7 +58,9 @@ class DedupConfig:
     byte_ingest: bool = False  # device bytes -> bands (no stemming; K6, K1)
     verify_backend: str = "auto"  # estimate mode: numpy | torch | kernel
     verify_batch: str = "run"  # engine batch granularity: run | band
-    store: str = "memory"
+    # The reference's default: the environment picks the band-store tier.
+    store: str = field(default_factory=lambda: os.environ.get(
+        "REPRO_STORE_BACKEND", "memory"))
 
     def __post_init__(self):
         if self.verify_backend not in ("auto", *BACKENDS):

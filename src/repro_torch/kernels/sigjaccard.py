@@ -14,7 +14,9 @@ and 0 elsewhere.  ``masked_indexed_pair_counts`` gathers rows of one
 matrix after clipping both indices to [0, D - 1];
 ``masked_pair_counts`` takes two pre-gathered (P, M) row matrices.  Like
 K2, each launches its kernel for tensors on the card and runs its
-``*_plain`` version for tensors on the CPU.
+``*_plain`` version for tensors on the CPU.  ``pair_estimate``, the
+reference's pre-gathered estimate, is K7's pre-gathered counts with every
+lane valid, divided by M in PyTorch.
 """
 from __future__ import annotations
 
@@ -192,3 +194,11 @@ def masked_indexed_pair_estimate(sig: torch.Tensor, a_idx: torch.Tensor,
     (0.0 where not ``valid``)."""
     return estimate_from_counts(
         masked_indexed_pair_counts(sig, a_idx, b_idx, valid), sig.shape[1])
+
+
+def pair_estimate(sig_a: torch.Tensor, sig_b: torch.Tensor) -> torch.Tensor:
+    """(P, M) int32 words x2 -> (P,) float32 agreement fraction: K7's
+    pre-gathered counts with every lane valid / M, correctly rounded."""
+    valid = torch.ones(sig_a.shape[:1], dtype=torch.bool, device=sig_a.device)
+    return estimate_from_counts(masked_pair_counts(sig_a, sig_b, valid),
+                                sig_a.shape[1])

@@ -24,12 +24,17 @@ from repro_torch.core.minhash import estimate_from_counts
 from repro_torch.core.pipeline import DedupConfig, DedupPipeline
 from repro_torch.core.verify import SignatureVerifier
 from repro_torch.data import inject_near_duplicates, make_i2b2_like
+from repro_torch.configs import get_reduced
 from repro_torch.kernels import bandfold as k5
 from repro_torch.kernels import byte_shingle as k6
 from repro_torch.kernels import fused_ingest as k1
 from repro_torch.kernels import minhash as k4
 from repro_torch.kernels import ngram as k3
+from repro_torch.kernels import flash_attention as k8
 from repro_torch.kernels import sigjaccard as k2
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models import lm
+from repro_torch.serving import ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -381,3 +386,88 @@ def test_sharded_step_over_nccl_matches_gloo(cuda, tmp_path):
     world = 4 if cards >= 4 else 2
     mp.start_processes(_nccl_worker, args=(world, str(tmp_path / "pg")),
                        nprocs=world, join=True, start_method="spawn")
+
+
+# -- K8: flash attention ---------------------------------------------------------
+
+def _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, device, seed=0):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((B, Sq, H, Dh), (B, Skv, Hkv, Dh),
+                               (B, Skv, Hkv, Dh)))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh,window,causal", [
+    (2, 64, 64, 8, 2, 16, None, True),
+    (1, 100, 100, 4, 4, 8, None, True),
+    (2, 96, 96, 8, 2, 16, 24, True),
+    (1, 37, 37, 6, 2, 16, None, True),
+    (2, 10, 30, 4, 2, 16, 7, True),
+    (2, 10, 30, 4, 2, 16, 7, False),
+    (1, 300, 300, 32, 8, 80, 64, True),     # h2o-danube's heads
+    (1, 130, 130, 16, 16, 256, None, True),  # gemma's head width
+    (1, 70, 70, 4, 2, 16, 0, True),          # every key masked: zeros
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, Dh,
+                                              window, causal, dtype):
+    q, k, v = _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, cuda)
+    k8.launches = 0
+    got = k8.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k8.launches == 1 and got.dtype == dtype
+    want = k8.flash_attention_plain(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:  # IEEE FMAs in both, sums in another order
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+        return
+    # bf16: both round p to bf16 (relative 2**-9) against the running max
+    # of their own tile order, so their sums differ by at most 2**-8 of
+    # sum_j p_j |v_j| / l (the plain version on |v|); both round the
+    # output, at most one unit in the last place (<= 2**-7 |want|) apart.
+    want = want.float()
+    vbar = k8.flash_attention_plain(q, k, v.abs(), causal=causal,
+                                    window=window).float()
+    bound = 2**-7 * want.abs() + 2**-8 * vbar + 1e-5
+    assert bool(((got.float() - want).abs() <= bound).all())
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 4, 2, 16, torch.float32, cuda)
+    k8.launches = 0
+    with pytest.raises(ValueError):
+        k8.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        k8.flash_attention(q.half(), k.half(), v.half())
+    assert k8.launches == 0
+
+
+def test_serve_batch_with_flash_on_card_matches_cpu(cuda):
+    cfg = get_reduced("h2o-danube-1.8b").with_(use_flash_attention=True)
+    model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = np.random.RandomState(0).randint(
+        2, cfg.vocab_size, size=(2, 13)).astype(np.int32)
+    want, _ = serve_batch(cfg, model, prompts, 6)
+    k8.launches = 0
+    got, _ = serve_batch(cfg, model.to(cuda), prompts, 6)
+    assert k8.launches == cfg.n_layers  # one launch per layer per prefill
+    assert np.array_equal(got, want)
+    eng = ServeEngine(cfg, model, slots=2, cache_len=24, eos_id=-1)
+    for n in (5, 11, 3):
+        eng.submit(prompts[0, :n], max_tokens=4)
+    assert len(eng.run_until_drained()) == 3
+    assert k8.launches == cfg.n_layers * (1 + eng.stats.prefills)
+
+
+def test_pair_estimate_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(14)
+    P, M = 5000, 100
+    a = u32_from_numpy(rng.randint(0, 3, size=(P, M)).astype(np.uint32), cuda)
+    b = u32_from_numpy(rng.randint(0, 3, size=(P, M)).astype(np.uint32), cuda)
+    k2.masked_launches = 0
+    got = k2.pair_estimate(a, b)
+    torch.cuda.synchronize()
+    assert k2.masked_launches == 1
+    want = estimate_from_counts(
+        (a == b).sum(dim=1, dtype=torch.int32), M)
+    assert torch.equal(got, want)

@@ -208,3 +208,37 @@ def test_bad_config_values_raise():
         DedupConfig(verify_backend="pallas")
     with pytest.raises(ValueError):
         DedupConfig(store="redis")
+
+
+def test_store_default_reads_the_environment(monkeypatch):
+    monkeypatch.delenv("REPRO_STORE_BACKEND", raising=False)
+    assert DedupConfig().store == "memory"
+    monkeypatch.setenv("REPRO_STORE_BACKEND", "memory")
+    assert DedupConfig().store == "memory"
+    monkeypatch.setenv("REPRO_STORE_BACKEND", "sqlite")
+    assert ref_pipeline.DedupConfig().store == "sqlite"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        DedupConfig()
+    monkeypatch.setenv("REPRO_STORE_BACKEND", "redis")
+    with pytest.raises(ValueError):
+        DedupConfig()
+
+
+def test_core_exports_the_ported_names_of_the_reference():
+    import importlib
+    import pkgutil
+
+    import repro.core as ref_core
+    import repro_torch.core as core
+
+    modules = [importlib.import_module(f"repro_torch.core.{m.name}")
+               for m in pkgutil.iter_modules(core.__path__)]
+    ported = {name for name in ref_core.__all__
+              if any(hasattr(m, name) for m in modules)}
+    assert set(core.__all__) <= set(ref_core.__all__)
+    assert ported <= set(core.__all__)
+    assert {"CallbackVerifier", "LSHParams", "candidate_probability",
+            "candidate_pairs"} <= set(core.__all__)
+    assert "merge_cluster_rounds" not in core.__all__
+    for name in core.__all__:
+        assert getattr(core, name) is not None, name

@@ -19,6 +19,7 @@ from repro.data import inject_near_duplicates as ref_inject
 from repro.data import make_i2b2_like as ref_notes
 from repro.kernels.fused_ingest import fused_ingest as ref_fused_ingest
 from repro.kernels.sigjaccard import indexed_pair_estimate
+from repro.kernels.sigjaccard import pair_estimate as ref_pair_estimate
 from repro_torch.core import jaccard, lsh, minhash, shingle
 from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
 from repro_torch.kernels import fused_ingest as k1
@@ -233,6 +234,28 @@ def test_pair_counts_plain_matches_pallas_interpret_and_numpy_verifier():
     want = RefSignatureVerifier(sig, backend="numpy")(np.stack([a, b], 1))
     assert np.array_equal(ours, want)
     assert np.all(counts[:20] == M)
+
+
+@pytest.mark.parametrize("P,M", [(300, 100), (37, 7), (5, 130)])
+def test_pair_estimate_matches_pallas_interpret_and_numpy_verifier(P, M):
+    rng = np.random.RandomState(P + M)
+    a = rng.randint(0, 3, size=(P, M)).astype(np.uint32)
+    b = rng.randint(0, 3, size=(P, M)).astype(np.uint32)
+    b[:4] = a[:4]  # identical rows: count M
+    before = k2.masked_launches
+    got = k2.pair_estimate(_t(a), _t(b)).numpy()
+    assert k2.masked_launches == before  # the CPU runs the plain version
+    counts = k2.masked_pair_counts_plain(_t(a), _t(b),
+                                         torch.ones(P, dtype=torch.bool))
+    est = np.asarray(ref_pair_estimate(jnp.asarray(a), jnp.asarray(b)))
+    assert got.dtype == np.float32 and got.shape == (P,)
+    assert np.array_equal(counts.numpy(), np.rint(est * M).astype(np.int32))
+    assert np.max(np.abs(got - est)) <= 1e-6  # the Pallas body is 1 ulp off
+    sig = np.concatenate([a, b])
+    pairs = np.stack([np.arange(P), P + np.arange(P)], 1)
+    want = RefSignatureVerifier(sig, backend="numpy")(pairs)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.all(got[:4] == 1.0)
 
 
 def test_pair_counts_wrapper_on_cpu_runs_the_plain_version():

@@ -171,11 +171,7 @@ def test_band_values_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_ops_exports_the_ported_kernels_under_the_reference_names():
     ported = set(ops.__all__) - {"pair_counts"}
-    assert ported <= set(ref_ops.__all__)
-    assert {"ngram_hashes", "minhash_signatures", "band_values",
-            "fused_ingest", "byte_token_hashes", "bytes_to_bands",
-            "indexed_pair_estimate", "masked_indexed_pair_counts",
-            "masked_indexed_pair_estimate", "masked_pair_counts"} == ported
+    assert ported == set(ref_ops.__all__)
     assert ops.ngram_hashes is k3.ngram_hashes
     assert ops.minhash_signatures is k4.minhash_signatures
     assert ops.band_values is k5.band_values
