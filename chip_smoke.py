@@ -46,7 +46,10 @@ sm_90a), then runs these phases:
   test_kernels.py's four shapes to 3e-5, bf16 at h2o-danube's,
   olmo's and gemma's prefill shapes to a bound of bf16's rounding (and
   to 2e-2), each bf16 shape timed beside the plain version and
-  ``scaled_dot_product_attention``.
+  ``scaled_dot_product_attention``.  The built library's SASS shows
+  tensor-core HMMA instructions in every bf16 instantiation and none in
+  the float32 kernel; ptxas's registers, shared memory and spills (none
+  allowed in the bf16 kernel) and K8's own build time are printed.
 * Phase M, serving h2o-danube-1.8b at full width: in float32, K8
   against ``blockwise_attention`` in every layer of a 6,144-token
   prefill and end to end at two layers; in bf16, ``serve_batch``
@@ -123,6 +126,7 @@ def main() -> int:
     torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     emit(build={"seconds": build_s, "library": lib_path.name,
+                "nvcc_s": nvcc_seconds(log),
                 "ptxas": [ln.strip() for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln]},
          context_s=time.perf_counter() - t0, clock_max_hz=clock_hz)
@@ -159,7 +163,7 @@ def main() -> int:
                   "library_ms": None, "match": True,
                   **paper["pair_estimate"]})
     torch.cuda.empty_cache()
-    k8_shapes = phase_f(torch, clock_hz)
+    k8_shapes = phase_f(torch, clock_hz, lib_path, log)
     lines.append(phase_m(torch, k8_shapes))
     emit(kernels=lines)
     print(json.dumps({"ok": True, "device": {
@@ -1071,6 +1075,65 @@ def sdpa_backends(torch, call) -> list[str]:
     return accepted
 
 
+# K8's sources, and the targets of its bf16 redesign at the three prefill
+# shapes (ms): at most SDPA's time and 10x the bound at h2o-danube's.
+K8_SOURCES = ("flash_attention.cu", "flash_attention_f32.cu")
+K8_TARGET_MS = {"h2o-danube-1.8b": 1.74, "olmo-1b": 0.59, "gemma-7b": 0.48}
+
+
+def k8_ptxas(log: str) -> list[dict]:
+    """ptxas's report (``-Xptxas -v`` in the build log) for each K8
+    kernel instantiation: registers, static shared memory, spill bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E",
+                             entry.group(1))
+            cur = None
+            if name:
+                cur = {"kernel": name.group(1), "tier": int(name.group(2))}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            cur["spill_stores"], cur["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["registers"] = int(used.group(1))
+            cur["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def k8_sass(lib_path) -> dict:
+    """HMMA (tensor-core) instruction counts of each K8 instantiation in
+    the built library's SASS, and how many of them take TF32."""
+    from repro_torch.kernels import build
+
+    text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for f in text.split("Function : ")[1:]:
+        name = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E",
+                         f.split("\n", 1)[0])
+        if name:
+            ops = re.findall(r"\bHMMA(\.[A-Z0-9_.]*)?", f)
+            out[f"{name.group(1)}_{name.group(2)}"] = {
+                "hmma": len(ops), "tf32_hmma": sum("TF32" in o for o in ops)}
+    return out
+
+
+def nvcc_seconds(log: str) -> dict:
+    """Each source's compile time, from the build log's ``== name (t s)``
+    lines (one nvcc a source, all started together)."""
+    return {name: float(t) for name, t in
+            re.findall(r"^== (\S+) \(([\d.]+) s\)$", log, re.M)}
+
+
 def bf16_bound(want, vbar):
     """How far K8 may lie from its plain version in bf16, element by element.
 
@@ -1083,15 +1146,37 @@ def bf16_bound(want, vbar):
     return 2**-7 * want.abs() + 2**-8 * vbar + 1e-5
 
 
-def phase_f(torch, clock_hz: float) -> dict:
+def phase_f(torch, clock_hz: float, lib_path, log: str) -> dict:
     """K8 against ``flash_attention_plain`` on the card: float32 to 3e-5;
     bf16 to ``bf16_bound`` on unit-normal inputs, and to the coarser
     atol = rtol = 2e-2.  A mask off by one key (window + 1; every query
-    one position later) must exceed the bound: the printed ratios show by
-    how much.  Timed beside its plain version and SDPA at the bf16 prefill
-    shapes."""
+    one position later) must exceed the bound.  Timed beside its plain
+    version and SDPA at the bf16 prefill shapes, with the ratio to
+    ``K8_TARGET_MS`` and to SDPA reported.  First the build: every bf16
+    instantiation holds HMMA instructions and spills nothing, the float32
+    kernel holds no HMMA (so no TF32)."""
     from repro_torch.kernels import flash_attention as k8
     from repro_torch.models.attention import blockwise_attention
+
+    ptxas = k8_ptxas(log)
+    sass = k8_sass(lib_path)
+    tiers = {}
+    for kind in ("bf16", "f32"):  # the tiers themselves are the tests' to pin
+        tiers[kind] = sorted(r["tier"] for r in ptxas if r["kernel"] == kind)
+        in_sass = sorted(int(n.split("_")[1]) for n in sass
+                         if n.startswith(kind))
+        check(bool(tiers[kind]) and tiers[kind] == in_sass,
+              f"K8 {kind}: the same instantiations in ptxas's log "
+              f"{tiers[kind]} and in SASS {in_sass}")
+    check(all(sass[f"bf16_{t}"]["hmma"] > 0 for t in tiers["bf16"]),
+          f"K8 bf16: HMMA in every instantiation ({sass})")
+    check(all(sass[f"f32_{t}"]["hmma"] == 0 for t in tiers["f32"]),
+          f"K8 float32: no HMMA, so no TF32 ({sass})")
+    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in ptxas
+              if r["kernel"] == "bf16"), f"K8 bf16: no spills ({ptxas})")
+    nvcc_s = nvcc_seconds(log)
+    emit(k8_build={"ptxas": ptxas, "sass": sass, "nvcc_s": {
+        name: nvcc_s.get(name) for name in K8_SOURCES}})
 
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
@@ -1130,6 +1215,8 @@ def phase_f(torch, clock_hz: float) -> dict:
         if window is not None:
             mutants["window_plus_1"] = over(k8.flash_attention_plain(
                 q, k, v, window=window + 1))
+        check(min(mutants.values()) > 1.0,
+              f"a mask one key off exceeds bf16_bound at {arch} ({mutants})")
         call = sdpa_call(torch, q, k, v, window)
         lib = call().transpose(1, 2).float()
         bf16[arch] = {
@@ -1146,8 +1233,14 @@ def phase_f(torch, clock_hz: float) -> dict:
             "library_backends": sdpa_backends(torch, call),
             "library_max_abs_err": float((lib - want).abs().max()),
             **k8_bound(torch, shape, torch.bfloat16, clock_hz)}
+        r = bf16[arch]
+        r.update(target_ms=K8_TARGET_MS[arch],
+                 ms_over_target=r["ms"] / K8_TARGET_MS[arch],
+                 ms_over_library=r["ms"] / r["library_ms"],
+                 ms_over_bound=r["ms"] / r["bound_ms"])
         del q, k, v, got, want, tol, lib, call
-    out = {"float32": f32, "bf16": bf16}
+    out = {"float32": f32, "bf16": bf16,
+           "card": smi_query("name,power.limit")}
     emit(phase_f=out)
     return out
 
@@ -1324,6 +1417,30 @@ def phase_m(torch, k8_shapes: dict) -> dict:
         runs[name] = {**stats, "k8_launches": k8.launches,
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "tokens": toks[0].tolist()}
+    # K8 timed inside one more long prefill: CUDA events around each of its
+    # 24 launches, against that prefill's host-timed span.
+    spans = []
+
+    def k8_timed(q, k, v, *, causal, window):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        got = k8.flash_attention(q, k, v, causal=causal, window=window)
+        end.record()
+        spans.append((start, end))
+        return got
+
+    blocks.flash_attention = k8_timed
+    try:
+        _, stats = serve_batch(cfg, model, long_prompt, 1)
+    finally:
+        blocks.flash_attention = k8.flash_attention
+    torch.cuda.synchronize()
+    k8_ms = [start.elapsed_time(end) for start, end in spans]
+    check(len(k8_ms) == n_layers, "timed prefill: K8 once per layer")
+    runs["b1_p6144_n8"]["k8_in_prefill"] = {
+        "ms": k8_ms, "sum_ms": sum(k8_ms), "prefill_s": stats["prefill_s"],
+        "share": sum(k8_ms) / 1e3 / stats["prefill_s"]}
     flash_bf = last_logits(cfg, model, True)
     plain_bf = last_logits(cfg, model, False)
     check(bool(torch.isfinite(flash_bf).all()), "bf16 logits finite")
@@ -1359,9 +1476,10 @@ def phase_m(torch, k8_shapes: dict) -> dict:
 
     main_shape = k8_shapes["bf16"][M_ARCH]
     keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")
+            "bound_ms", "bound_by", "max_err_over_bound")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "float32_source": "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
             "replaces": "src/repro/kernels/flash_attention.py:35",
             "launches": launches, "match": True,
             **{k: main_shape[k] for k in keep},

@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -84,7 +86,8 @@ def build() -> tuple[Path, str]:
     """Compile and link the kernels unless this checkout already has them.
 
     Returns the library path and nvcc's messages (``-Xptxas -v``:
-    registers, shared memory and spills per kernel).  Raises
+    registers, shared memory and spills per kernel), each source's under a
+    line ``== name (seconds s)`` with its own compile time.  Raises
     ``RuntimeError`` with nvcc's output if a step fails.
     """
     lib_path = _library_path()
@@ -93,19 +96,26 @@ def build() -> tuple[Path, str]:
         return lib_path, log_path.read_text() if log_path.is_file() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_tool()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+
+    def compile_one(src: Path, obj: Path):
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                               str(obj)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    sources = _sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+            ThreadPoolExecutor(len(sources)) as pool:
         procs = []
-        for src in _sources():
+        for src in sources:
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            procs.append((src, obj, pool.submit(compile_one, src, obj)))
         log = []
         failed = []
-        for src, _, proc in procs:
-            out, _ = proc.communicate()
-            log.append(f"== {src.name}\n{out}")
+        for src, _, job in procs:
+            proc, seconds = job.result()
+            log.append(f"== {src.name} ({seconds:.2f} s)\n{proc.stdout}")
             if proc.returncode != 0:
                 failed.append(src.name)
         if failed:

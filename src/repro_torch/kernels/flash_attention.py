@@ -10,12 +10,15 @@ g = H / Hkv query heads of one KV head sharing its keys, and the masks
 ``k <= q`` (causal) and ``k > q - window``, with q and k positions both
 counted from 0.  p is cast to v's dtype before the PV product.
 
-For tensors on the card it launches the CUDA kernel
-(``csrc/flash_attention.cu``): float32 or bf16 inputs of one dtype, head
-widths up to 256.  For tensors on the CPU it runs
+For tensors on the card it launches a CUDA kernel through one C entry
+point (``csrc/flash_attention.cu``), which routes by dtype: bf16 to a
+tensor-core kernel (``mma.sync`` on 128 folded q rows a block, key
+tiles of 64, 48 at head width 80 and 32 at 256), float32 to an
+IEEE-FMA kernel (``csrc/flash_attention_f32.cu``), since TF32 would not
+meet the float32 tolerance.  Head widths up to 256.  For tensors on the CPU it runs
 ``flash_attention_plain``.  The reference's ``tq``, ``tk`` and
-``interpret`` are the TPU's tiling and backend knobs; the kernel picks
-its own tiles.
+``interpret`` are the TPU's tiling and backend knobs; the kernels pick
+their own tiles.
 """
 from __future__ import annotations
 

@@ -30,5 +30,6 @@ def test_only_cu_files_compile():
     sources = build._sources()
     assert sources and all(p.suffix == ".cu" for p in sources)
     assert {"fused_ingest.cu", "sigjaccard.cu", "ngram.cu", "minhash.cu",
-            "bandfold.cu", "byte_shingle.cu"} <= {p.name for p in sources}
+            "bandfold.cu", "byte_shingle.cu", "flash_attention.cu",
+            "flash_attention_f32.cu"} <= {p.name for p in sources}
     assert (build.CSRC / "hash_common.cuh").is_file()

@@ -390,12 +390,33 @@ def test_sharded_step_over_nccl_matches_gloo(cuda, tmp_path):
 
 # -- K8: flash attention ---------------------------------------------------------
 
-def _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, device, seed=0):
+def _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, device, seed=0, Dv=None):
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
                  for shape in ((B, Sq, H, Dh), (B, Skv, Hkv, Dh),
-                               (B, Skv, Hkv, Dh)))
+                               (B, Skv, Hkv, Dv or Dh)))
+
+
+def _assert_k8_matches_plain(q, k, v, causal, window):
+    k8.launches = 0
+    got = k8.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k8.launches == 1 and got.dtype == q.dtype
+    want = k8.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape == q.shape[:3] + v.shape[3:]
+    if q.dtype == torch.float32:  # IEEE FMAs in both, sums in another order
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+        return
+    # bf16: both round p to bf16 (relative 2**-9) against the running max
+    # of their own tile order, so their sums differ by at most 2**-8 of
+    # sum_j p_j |v_j| / l (the plain version on |v|); both round the
+    # output, at most one unit in the last place (<= 2**-7 |want|) apart.
+    want = want.float()
+    vbar = k8.flash_attention_plain(q, k, v.abs(), causal=causal,
+                                    window=window).float()
+    bound = 2**-7 * want.abs() + 2**-8 * vbar + 1e-5
+    assert bool(((got.float() - want).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh,window,causal", [
@@ -408,28 +429,28 @@ def _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, device, seed=0):
     (1, 300, 300, 32, 8, 80, 64, True),     # h2o-danube's heads
     (1, 130, 130, 16, 16, 256, None, True),  # gemma's head width
     (1, 70, 70, 4, 2, 16, 0, True),          # every key masked: zeros
+    (1, 200, 200, 16, 16, 128, None, True),  # olmo's head width
+    (4, 512, 512, 32, 8, 80, None, True),    # a serving batch
+    (1, 333, 333, 32, 8, 80, 100, True),     # window not a key tile, ragged
+    (2, 50, 50, 6, 2, 36, 20, True),         # Dh % 8 != 0: element copies
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, Dh,
                                               window, causal, dtype):
     q, k, v = _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, cuda)
-    k8.launches = 0
-    got = k8.flash_attention(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert k8.launches == 1 and got.dtype == dtype
-    want = k8.flash_attention_plain(q, k, v, causal=causal, window=window)
-    if dtype == torch.float32:  # IEEE FMAs in both, sums in another order
-        torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
-        return
-    # bf16: both round p to bf16 (relative 2**-9) against the running max
-    # of their own tile order, so their sums differ by at most 2**-8 of
-    # sum_j p_j |v_j| / l (the plain version on |v|); both round the
-    # output, at most one unit in the last place (<= 2**-7 |want|) apart.
-    want = want.float()
-    vbar = k8.flash_attention_plain(q, k, v.abs(), causal=causal,
-                                    window=window).float()
-    bound = 2**-7 * want.abs() + 2**-8 * vbar + 1e-5
-    assert bool(((got.float() - want).abs() <= bound).all())
+    _assert_k8_matches_plain(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh,Dv,window,causal", [
+    (1, 150, 150, 8, 2, 64, 80, 40, True),    # Dv > Dh: V staged wider
+    (2, 70, 90, 6, 2, 64, 36, None, False),   # Dv % 8 != 0: element copies
+    (1, 130, 130, 4, 4, 128, 64, None, True),  # Dv < Dh
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_with_value_width(
+        cuda, B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, dtype):
+    q, k, v = _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, cuda, Dv=Dv)
+    _assert_k8_matches_plain(q, k, v, causal, window)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
