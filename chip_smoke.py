@@ -4,14 +4,22 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-sm_90a), then runs these phases:
+sm_90a) and reads the build back: K1's min loop (``k1_sass``), and K2's
+and K7's instantiations (``k2_sass``: 16-byte loads, ``LDG.E.128``, and
+no spills in the vector path of each of the three pair-count entry
+points).  Every pair-count line says which path ran (16-byte or scalar
+loads) and G, the lanes a pair, and gives the gathered bytes at HBM's
+rate as a second floor beside the bound.  Then it runs these phases:
 
 * Phase A, the main path: ``DedupPipeline.run`` with K1 (fused ingest)
   and K2 (pair agreement counts) on 16,384 synthetic clinical notes.
   Signatures and bands are held bit for bit against K1's plain version
   on the same packed matrix, every pair similarity against K2's plain
   counts / M, and labels, keep mask and pairs against the plain path
-  (staged PyTorch signatures, numpy verifier) on the same notes.
+  (staged PyTorch signatures, numpy verifier) on the same notes.  K2's
+  launches over the run's pairs, in the verifier's batches, are timed
+  per call (host and device) and replayed from a CUDA graph (device
+  alone); the run's ``verify_s`` per flush is reported.
 * Phase A2, byte ingest: ``run`` with ``byte_ingest`` on the same notes,
   through K6 (byte token hashes), K1 and K2.  Signatures and bands are
   held against K6's plain version + compaction + K1's plain version on
@@ -28,7 +36,8 @@ sm_90a), then runs these phases:
   counts).  Signatures equal phase A's, both runs' edge buffers are
   equal, nothing overflows, the device run's labels and (a, b, sim)
   list equal the host run's, and K7 equals its plain version on the
-  step's gathered edges.
+  step's gathered edges (its 5 launches timed per call and from a CUDA
+  graph).
 * Phase B, paper-scale kernels: K1, and K3 -> K4 -> K5, on a 1,048,576 x
   256 token matrix (a tenth of the paper's 10M-note corpus as one ingest
   chunk); K2 on 16,777,216 random pairs through ``SignatureVerifier``;
@@ -132,6 +141,7 @@ def main() -> int:
          context_s=time.perf_counter() - t0, clock_max_hz=clock_hz)
     k1_sass = sass_mix(lib_path, "fused_ingest_kernel")
     emit(k1_sass=k1_sass)
+    emit(k2_sass=k2_sass(lib_path, log))
 
     from repro_torch.data import inject_near_duplicates, make_i2b2_like
 
@@ -195,6 +205,34 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn``'s launches replayed from a CUDA graph:
+    the same kernels with no host work between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up, as graph capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, reps)
+
+
+def gathered(nbytes: int, ms: float) -> dict:
+    """A second floor for the pair counts: the gathered bytes (two rows a
+    pair, each read as often as a pair names it) at HBM's rate, and the
+    rate a time of ``ms`` reaches on them."""
+    return {"gathered_floor_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "gathered_tb_per_s": nbytes / (ms * 1e-3) / 1e12}
+
+
+def pair_path(k2, M: int, a, b) -> dict:
+    """Which pair-count path the launchers take for these rows."""
+    G, path = k2.schedule(M, a, b)
+    return {"G": G, "path": path, "pairs_per_warp": 32 // G}
 
 
 class ChunkTimer:
@@ -347,6 +385,92 @@ ALU_OPS = {"IADD3", "VIADD", "LOP3", "SHF", "ISETP", "IMNMX", "VIMNMX",
            "VIMNMX3", "SEL", "LEA", "MOV", "PRMT", "IABS", "POPC", "FLO"}
 
 
+def sass_functions(lib_path) -> dict[str, str]:
+    """Each kernel's SASS listing in the built library (``cuobjdump
+    -sass``), by its mangled name."""
+    from repro_torch.kernels import build
+
+    text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    return {f.split("\n", 1)[0].strip(): f
+            for f in text.split("Function : ")[1:]}
+
+
+def ptxas_entries(log: str) -> dict[str, dict]:
+    """ptxas's report (``-Xptxas -v`` in the build log) for each kernel,
+    by mangled name: registers, static shared memory, spill bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = out.setdefault(entry.group(1), {})
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            cur["spill_stores"], cur["spill_loads"] = map(int, spill.groups())
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["registers"] = int(used.group(1))
+            cur["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+# The pair-count kernels' instantiations: K2's kernel, and K7's one kernel
+# over IndexedRows or GatheredRows, each for G lanes a pair and a path.
+PAIR_KERNEL = re.compile(r"(masked_pair_counts_kernel|pair_counts_kernel)"
+                         r"ILi(\d+)ELb([01])E")
+PAIR_ENTRIES = ("pair_counts", "masked_indexed_pair_counts",
+                "masked_pair_counts")
+
+
+def pair_kernel_id(name: str):
+    """(entry point, G, vector path?) of a pair-count kernel's mangled
+    name, else None."""
+    m = PAIR_KERNEL.search(name)
+    if m is None:
+        return None
+    entry = ("pair_counts" if m.group(1) == "pair_counts_kernel"
+             else "masked_indexed_pair_counts" if "IndexedRows" in name
+             else "masked_pair_counts")
+    return entry, int(m.group(2)), m.group(3) == "1"
+
+
+def k2_sass(lib_path, log: str) -> list[dict]:
+    """K2's and K7's build read back: for each instantiation, its global
+    loads in SASS (``LDG.E.128`` is a 16-byte load) and ptxas's registers
+    and spills.  Fails unless every vector-path instantiation of each of
+    the three entry points loads 16 bytes at a time and spills nothing."""
+    ptxas = {}
+    for name, rep in ptxas_entries(log).items():
+        key = pair_kernel_id(name)
+        if key is not None:
+            ptxas[key] = rep
+    out = []
+    for name, listing in sass_functions(lib_path).items():
+        key = pair_kernel_id(name)
+        if key is None:
+            continue
+        loads = re.findall(r"\bLDG\.[A-Z0-9_.]*", listing)
+        out.append({"entry": key[0], "G": key[1],
+                    "path": "vector" if key[2] else "scalar",
+                    "ldg_128": sum(".128" in op for op in loads),
+                    "ldg_kinds": sorted(set(loads)), **ptxas.get(key, {})})
+    for entry in PAIR_ENTRIES:
+        vec = [r for r in out if r["entry"] == entry and r["path"] == "vector"]
+        check(len(vec) == 6, f"{entry}: six vector-path instantiations "
+              f"(G = 1 .. 32) in SASS ({len(vec)})")
+        check(all(r["ldg_128"] > 0 for r in vec),
+              f"{entry}: LDG.E.128 in every vector-path instantiation ({vec})")
+        check(all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                  for r in vec),
+              f"{entry}: ptxas reports no spills on the vector path ({vec})")
+    return sorted(out, key=lambda r: (r["entry"], r["path"], r["G"]))
+
+
 def sass_mix(lib_path, kernel: str) -> dict:
     """The instruction mix of ``kernel``'s min loop, per (position, seed) triple.
 
@@ -358,12 +482,8 @@ def sass_mix(lib_path, kernel: str) -> dict:
     clocks the loop needs per triple at full issue: the largest of ALU
     and FMA pipe work over 64 lanes and all instructions over 128.
     """
-    from repro_torch.kernels import build
-
-    text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True).stdout
-    listing = next(f for f in text.split("Function : ")[1:]
-                   if kernel in f.split("\n", 1)[0])
+    listing = next(f for name, f in sass_functions(lib_path).items()
+                   if kernel in name)
     ins = [(int(addr, 16), op, rest) for addr, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
         listing)]
@@ -487,6 +607,8 @@ def phase_a(torch, clock_hz: float, notes: list[str]):
     check(k2_err == 0, "K2 kernel == plain on the main-path pairs")
     k2_ms = cuda_ms(torch, lambda: [k2.pair_counts(sig_k, x, y)
                                     for x, y in batches], 10)
+    k2_device_ms = graph_ms(torch, lambda: [k2.pair_counts(sig_k, x, y)
+                                            for x, y in batches], 10)
     k2_plain_ms = cuda_ms(torch, lambda: [k2.pair_counts_plain(sig_k, x, y)
                                           for x, y in batches], 3)
 
@@ -528,6 +650,7 @@ def phase_a(torch, clock_hz: float, notes: list[str]):
         "sorted pair list": t["pairs_s"],
     }
     stages["outside the timed stages"] = run_s - sum(stages.values())
+    verify_us = t["verify_s"] / res.stats.verify_batches * 1e6
     emit(phase_a={
         "docs": D, "tokens_mean": float(np.mean(lens)), "tokens_max": max(lens),
         "L": int(packed.tokens.shape[1]), "run_s": run_s, "timings": t, "candidate_groups": groups,
@@ -539,6 +662,7 @@ def phase_a(torch, clock_hz: float, notes: list[str]):
         "pairs_excluded": res.stats.pairs_excluded,
         "unions": res.stats.unions_done,
         "verify_batches": res.stats.verify_batches,
+        "verify_us_per_flush": verify_us,
         "launches": launches, "plain_path_run_s": plain_run_s,
         "plain_path_match": True})
     common = {"route": "cuda", "library_ms": None, "match": True}
@@ -554,10 +678,14 @@ def phase_a(torch, clock_hz: float, notes: list[str]):
                "source": "src/repro_torch/kernels/csrc/sigjaccard.cu",
                "replaces": "src/repro/kernels/sigjaccard.py:65",
                "launches": launches["pair_counts"], "max_abs_err": k2_err,
-               "ms": k2_ms, "plain_ms": k2_plain_ms,
+               "ms": k2_ms, "device_ms": k2_device_ms,
+               "plain_ms": k2_plain_ms,
                "shape": {"D": D, "M": M, "P": len(pairs),
                          "batch": VERIFY_BATCH, "launches": len(batches)},
+               "verify_us_per_flush": verify_us,
+               **pair_path(k2, M, sig_k, sig_k),
                **k2_bound(D, M, len(pairs), clock_hz)}
+    k2_line.update(gathered(k2_line["gathered_bytes"], k2_device_ms))
     ctx = {"res": res, "tokens": tokens, "lengths": lengths, "seeds": seeds,
            "sig": sig_k}
     return ctx, k1_line, k2_line
@@ -879,6 +1007,8 @@ def phase_s(torch, clock_hz: float, ctx: dict) -> dict:
           "the step's device counts == K7 on its gathered edges")
     k7_ms = cuda_ms(torch, lambda: [k2.masked_indexed_pair_counts(sig, *x)
                                     for x in inputs], 20)
+    k7_device_ms = graph_ms(torch, lambda: [
+        k2.masked_indexed_pair_counts(sig, *x) for x in inputs], 20)
     k7_plain_ms = cuda_ms(torch, lambda: [
         k2.masked_indexed_pair_counts_plain(sig, *x) for x in inputs], 5)
     valid = torch.cat([v for _, _, v in inputs])
@@ -902,16 +1032,18 @@ def phase_s(torch, clock_hz: float, ctx: dict) -> dict:
                   "nccl_setup_s": nccl_setup_s,
                   "clusters": int((np.unique(dr.labels(), return_counts=True)[1]
                                    >= 2).sum()),
-                  "k7_ms": k7_ms, "k7_launches": dev["launches"][
+                  "k7_ms": k7_ms, "k7_device_ms": k7_device_ms,
+                  "k7_launches": dev["launches"][
                       "masked_pair_counts"], "host_match": True})
     return {"name": "masked_indexed_pair_counts", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sigjaccard_masked.cu",
             "replaces": "src/repro/kernels/sigjaccard.py:150",
             "launches": dev["launches"]["masked_pair_counts"],
-            "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms,
-            "library_ms": None, "match": True,
+            "max_abs_err": k7_err, "ms": k7_ms, "device_ms": k7_device_ms,
+            "plain_ms": k7_plain_ms, "library_ms": None, "match": True,
             "shape": {"D": D, "M": M, "P": int(valid.shape[0]),
                       "launches": len(inputs)},
+            **pair_path(k2, M, sig, sig),
             **k7_bound(torch, valid, M, clock_hz,
                        torch.cat([a for a, _, _ in inputs]),
                        torch.cat([b for _, b, _ in inputs]), D)}
@@ -986,6 +1118,7 @@ def phase_s2(torch, clock_hz, g, tokens, lengths, seeds, sig) -> dict:
               "prescreen_ms_per_group": prescreen_ms,
               "k7_ms_per_group": k7_ms, "k7_plain_ms_per_group": k7_plain_ms,
               "k7_launches": launches, "k7_max_abs_err": k7_err,
+              "k7_path": pair_path(k7, M, out["sig"], out["sig"]),
               "edges_per_group": edges,
               "candidates_per_group": [int(grp["stats"][0, 1])
                                        for grp in out["groups"]],
@@ -1082,44 +1215,22 @@ K8_TARGET_MS = {"h2o-danube-1.8b": 1.74, "olmo-1b": 0.59, "gemma-7b": 0.48}
 
 
 def k8_ptxas(log: str) -> list[dict]:
-    """ptxas's report (``-Xptxas -v`` in the build log) for each K8
-    kernel instantiation: registers, static shared memory, spill bytes."""
-    out, cur = [], None
-    for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
-            name = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E",
-                             entry.group(1))
-            cur = None
-            if name:
-                cur = {"kernel": name.group(1), "tier": int(name.group(2))}
-                out.append(cur)
-            continue
-        if cur is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
-        if spill:
-            cur["spill_stores"], cur["spill_loads"] = map(int, spill.groups())
-        used = re.search(r"Used (\d+) registers", line)
-        if used:
-            smem = re.search(r"(\d+) bytes smem", line)
-            cur["registers"] = int(used.group(1))
-            cur["static_smem"] = int(smem.group(1)) if smem else 0
+    """ptxas's report for each K8 kernel instantiation: registers, static
+    shared memory, spill bytes."""
+    out = []
+    for name, rep in ptxas_entries(log).items():
+        m = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E", name)
+        if m:
+            out.append({"kernel": m.group(1), "tier": int(m.group(2)), **rep})
     return out
 
 
 def k8_sass(lib_path) -> dict:
     """HMMA (tensor-core) instruction counts of each K8 instantiation in
     the built library's SASS, and how many of them take TF32."""
-    from repro_torch.kernels import build
-
-    text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True).stdout
     out = {}
-    for f in text.split("Function : ")[1:]:
-        name = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E",
-                         f.split("\n", 1)[0])
+    for fname, f in sass_functions(lib_path).items():
+        name = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E", fname)
         if name:
             ops = re.findall(r"\bHMMA(\.[A-Z0-9_.]*)?", f)
             out[f"{name.group(1)}_{name.group(2)}"] = {
@@ -1558,7 +1669,8 @@ def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
                                                  n=n, r=r), 300)}
     k2_out = {"shape": {"D": D, "M": M, "P": P}, "ms": k2_ms,
               "plain_ms": k2_plain_ms, "max_abs_err": k2_err,
-              **k2_bound(D, M, P, clock_hz)}
+              **pair_path(k2, M, sig, sig), **k2_bound(D, M, P, clock_hz)}
+    k2_out.update(gathered(k2_out["gathered_bytes"], k2_ms))
     out = {"fused_ingest": k1_out, "pair_counts": k2_out,
            "pair_estimate": phase_b_pair_estimate(torch, clock_hz, sig, a, b,
                                                   sims)}
@@ -1664,7 +1776,9 @@ def phase_b_pair_estimate(torch, clock_hz, sig, a, b, sims) -> dict:
     out = {"shape": {"P": Q, "M": M}, "launches": launches,
            "ms": cuda_ms(torch, lambda: ops.pair_estimate(rows_a, rows_b), 5),
            "plain_ms": cuda_ms(torch, plain, 2), "max_abs_err": err,
+           **pair_path(k7, M, rows_a, rows_b),
            **k7_bound(torch, every, M, clock_hz)}
+    out.update(gathered(out["gathered_bytes"], out["ms"]))
     emit(phase_b_pair_estimate=out)
     return out
 
@@ -1717,10 +1831,15 @@ def phase_b_k7(torch, clock_hz, g, sig, a, b) -> dict:
           "K7 pre-gathered == indexed on the same pairs")
     out = {"shape": {"D": D, "M": M, "P": P}, "ms": ms,
            "plain_ms": timer.ms(), "max_abs_err": err,
+           **pair_path(k7, M, sig, sig),
            **k7_bound(torch, valid, M, clock_hz, ai, bi, D),
            "pre_gathered": {"shape": {"P": Q, "M": M}, "ms": rows_ms,
                             "plain_ms": rows_plain_ms, "max_abs_err": rows_err,
+                            **pair_path(k7, M, rows_a, rows_b),
                             **k7_bound(torch, vq, M, clock_hz)}}
+    out.update(gathered(out["gathered_bytes"], ms))
+    out["pre_gathered"].update(gathered(out["pre_gathered"]["gathered_bytes"],
+                                        rows_ms))
     emit(phase_b_k7=out)
     del rows_a, rows_b
     return out

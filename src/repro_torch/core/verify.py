@@ -137,17 +137,22 @@ class SignatureVerifier(BatchVerifier):
             self._dev = u32_from_numpy(self._host, self.device)
         return self._dev
 
+    def _upload_pairs(self, pairs: np.ndarray):
+        """The two index columns of a (P, 2) int64 batch on ``device``,
+        as rows of one (2, P) block moved in one copy."""
+        block = torch.from_numpy(np.ascontiguousarray(pairs.T)).to(self.device)
+        return block[0], block[1]
+
     def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
         pairs = np.asarray(pairs, dtype=np.int64)
         if pairs.min() < 0 or pairs.max() >= self.num_docs:
             raise IndexError(f"pair index outside [0, {self.num_docs})")
-        a_idx, b_idx = pairs[:, 0], pairs[:, 1]
         if self.backend == "numpy":
             sig = self.signatures
+            a_idx, b_idx = pairs[:, 0], pairs[:, 1]
             return (sig[a_idx] == sig[b_idx]).mean(axis=-1, dtype=np.float32)
         sig = self._device_signatures()
-        a = torch.from_numpy(np.ascontiguousarray(a_idx)).to(self.device)
-        b = torch.from_numpy(np.ascontiguousarray(b_idx)).to(self.device)
+        a, b = self._upload_pairs(pairs)
         if self.backend == "torch":
             est = minhash.estimate_jaccard(sig[a], sig[b])
         else:

@@ -17,6 +17,11 @@ K2, each launches its kernel for tensors on the card and runs its
 ``*_plain`` version for tensors on the CPU.  ``pair_estimate``, the
 reference's pre-gathered estimate, is K7's pre-gathered counts with every
 lane valid, divided by M in PyTorch.
+
+All three launchers run one lane-group body (``csrc/pair_counts_common.cuh``):
+G lanes a pair (``lane_group`` there), 16-byte loads where M % 4 == 0 and
+the rows' bases are 16-byte aligned, else 4-byte loads in the same lane
+map.  ``schedule`` asks the library which of the two a launch takes.
 """
 from __future__ import annotations
 
@@ -29,6 +34,26 @@ from repro_torch.kernels import build
 launches = 0
 # Kernel launches made by the two masked forms (K7) in this process.
 masked_launches = 0
+
+
+def schedule(M: int, a: torch.Tensor, b: torch.Tensor) -> tuple[int, str]:
+    """(G, ``"vector"`` or ``"scalar"``): what a launch over rows of M
+    words whose bases are ``a`` and ``b`` (card tensors) runs, as the
+    library's launchers decide it."""
+    s = build.library().pair_counts_schedule(M, a.data_ptr(), b.data_ptr())
+    return abs(s), "vector" if s > 0 else "scalar"
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch ``name`` on ``device``'s current stream; raise on a CUDA
+    error.  The device is made current only when it is not already."""
+    fn = getattr(build.library(), name)
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, name.removesuffix("_launch"))
 
 
 def pair_counts_plain(sig: torch.Tensor, a_idx: torch.Tensor,
@@ -68,12 +93,8 @@ def pair_counts(sig: torch.Tensor, a_idx: torch.Tensor,
     counts = torch.empty((P,), dtype=torch.int32, device=sig.device)
     if P == 0:
         return counts
-    lib = build.library()
-    with torch.cuda.device(sig.device):
-        code = lib.pair_counts_launch(
-            sig.data_ptr(), D, M, a_idx.data_ptr(), b_idx.data_ptr(), P,
-            counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    build.check_launch(code, "pair_counts")
+    _launch("pair_counts_launch", sig.device, sig.data_ptr(), D, M,
+            a_idx.data_ptr(), b_idx.data_ptr(), P, counts.data_ptr())
     launches += 1
     return counts
 
@@ -113,11 +134,7 @@ def _check_lanes(P: int, device, **lanes) -> None:
 
 def _launch_masked(fn_name: str, device, *args) -> None:
     global masked_launches
-    lib = build.library()
-    with torch.cuda.device(device):
-        code = getattr(lib, fn_name)(
-            *args, torch.cuda.current_stream().cuda_stream)
-    build.check_launch(code, fn_name.removesuffix("_launch"))
+    _launch(fn_name, device, *args)
     masked_launches += 1
 
 

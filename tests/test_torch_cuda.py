@@ -492,3 +492,99 @@ def test_pair_estimate_kernel_matches_plain(cuda):
     want = estimate_from_counts(
         (a == b).sum(dim=1, dtype=torch.int32), M)
     assert torch.equal(got, want)
+
+
+def _offset(x: torch.Tensor) -> torch.Tensor:
+    """The same values in a flat buffer viewed from its second word: a
+    contiguous tensor whose base is 4 bytes past 16-byte alignment."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _k2_case(cuda, P, misaligned):
+    rng = np.random.RandomState(P)
+    D = 300
+    for M in range(1, 261):
+        sig = u32_from_numpy(rng.randint(0, 3, size=(D, M)).astype(np.uint32),
+                             cuda)
+        if misaligned:
+            sig = _offset(sig)
+        a = torch.from_numpy(rng.randint(0, D, size=P)).to(cuda)
+        b = torch.from_numpy(rng.randint(0, D, size=P)).to(cuda)
+        a[0], b[-1] = 0, D - 1  # the first and last rows
+        b[: P // 8] = a[: P // 8]
+        vector = M % 4 == 0 and not misaligned
+        G, path = k2.schedule(M, sig, sig)
+        assert G in (1, 2, 4, 8, 16, 32), M
+        assert path == ("vector" if vector else "scalar"), M
+        k2.launches = 0
+        got = k2.pair_counts(sig, a, b)
+        torch.cuda.synchronize()
+        assert k2.launches == 1
+        assert torch.equal(got, k2.pair_counts_plain(sig, a, b)), (M, P)
+
+
+def _k7_case(cuda, mask, misaligned):
+    D, P = 300, 4099
+    for M in range(1, 261):
+        sig, a, b, valid = _masked_inputs(D, M, P, seed=M, device=cuda)
+        lanes = torch.arange(P, device=cuda)
+        valid = {"all": torch.ones_like(valid), "none": torch.zeros_like(valid),
+                 "1-in-64": lanes % 64 == 5, "every-other": lanes % 2 == 1,
+                 "mixed": valid}[mask]
+        rows_a = sig[a.long().clamp(0, D - 1)]
+        rows_b = sig[b.long().clamp(0, D - 1)]
+        if misaligned:
+            sig, rows_a = _offset(sig), _offset(rows_a)
+        vector = M % 4 == 0 and not misaligned
+        G, path = k2.schedule(M, sig, sig)
+        assert G in (1, 2, 4, 8, 16, 32)
+        assert path == ("vector" if vector else "scalar")
+        assert k2.schedule(M, rows_a, rows_b) == (G, path)
+        k2.masked_launches = 0
+        got = k2.masked_indexed_pair_counts(sig, a, b, valid)
+        got_rows = k2.masked_pair_counts(rows_a, rows_b, valid)
+        torch.cuda.synchronize()
+        assert k2.masked_launches == 2
+        want = k2.masked_indexed_pair_counts_plain(sig, a, b, valid)
+        assert torch.equal(got, want), (M, mask)
+        assert torch.equal(got_rows, want), (M, mask)
+
+
+def _verifier_case(cuda):
+    rng = np.random.RandomState(15)
+    D, M = 2000, 100
+    sig = rng.randint(0, 3, size=(D, M)).astype(np.uint32)
+    kern = SignatureVerifier(sig, backend="kernel", device=cuda)
+    ref = SignatureVerifier(sig, backend="numpy", device=cuda)
+    k2.launches = 0
+    for P in (1, 8192, 8193, 3):  # 8,193 is two batches: 8,192 and 1
+        pairs = rng.randint(0, D, size=(P, 2))
+        pairs[0] = [0, D - 1]
+        got = kern(pairs)
+        assert got.dtype == np.float32 and got.shape == (P,)
+        assert np.array_equal(got.view(np.uint32),
+                              ref(pairs).view(np.uint32)), P
+    assert k2.launches == kern.n_batches == 5
+
+
+@pytest.mark.parametrize("case", [
+    "k2-P1", "k2-P7", "k2-P8193", "k2-P65537", "k2-misaligned",
+    "k7-all", "k7-none", "k7-1-in-64", "k7-every-other", "k7-misaligned",
+    "verifier-flushes"])
+def test_pair_count_kernels_match_plain_on_every_path(cuda, case):
+    """K2 and K7 (both forms) against their plain versions for every M in
+    1..260, on the 16-byte path and, from a base one word past 16-byte
+    alignment, on the scalar path; K7 under four masks; the kernel
+    verifier's single-upload batches against the numpy verifier."""
+    kind, _, arg = case.partition("-")
+    if kind == "k2":
+        _k2_case(cuda, 8193 if arg == "misaligned" else int(arg[1:]),
+                 arg == "misaligned")
+    elif kind == "k7":
+        _k7_case(cuda, "mixed" if arg == "misaligned" else arg,
+                 arg == "misaligned")
+    else:
+        _verifier_case(cuda)
