@@ -4,12 +4,15 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-sm_90a) and reads the build back: K1's min loop (``k1_sass``), and K2's
-and K7's instantiations (``k2_sass``: 16-byte loads, ``LDG.E.128``, and
-no spills in the vector path of each of the three pair-count entry
-points).  Every pair-count line says which path ran (16-byte or scalar
-loads) and G, the lanes a pair, and gives the gathered bytes at HBM's
-rate as a second floor beside the bound.  Then it runs these phases:
+sm_90a) and reads the build back: K1's min loop on the main path's lane
+map (``k1_sass``: at most 6.75 ALU instructions and 6.75 / 64 SM clocks
+a (position, seed) triple, no spills in any instantiation), K2's and K7's
+instantiations (``k2_sass``: 16-byte loads, ``LDG.E.128``, and no spills
+in the vector path of each of the three pair-count entry points), and
+K6's two paths (``k6_sass``: ``LDG.E.128`` and ``STG.E.128`` in the
+vector path, no spills).  Every pair-count line says which path ran
+(16-byte or scalar loads) and G, the lanes a pair, and gives the
+gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs these phases:
 
 * Phase A, the main path: ``DedupPipeline.run`` with K1 (fused ingest)
   and K2 (pair agreement counts) on 16,384 synthetic clinical notes.
@@ -42,7 +45,9 @@ rate as a second floor beside the bound.  Then it runs these phases:
   256 token matrix (a tenth of the paper's 10M-note corpus as one ingest
   chunk); K2 on 16,777,216 random pairs through ``SignatureVerifier``;
   K7 on 16,777,216 pairs (indexed) and 4,194,304 pairs (pre-gathered);
-  K6 and ``bytes_to_bands`` on 524,288 text-like rows of 2,048 bytes.
+  K6 and ``bytes_to_bands`` on 524,288 text-like rows of 2,048 bytes,
+  the latter also step by step with CUDA events between its steps (pad,
+  K6, compaction, K1; phase A2 does the same on its notes).
   Each kernel against its plain version bit for bit, and K4's
   signatures and K5's bands against K1's.
 * Phase S2, the sharded step at one ingest chunk: phase B's matrix with
@@ -139,9 +144,10 @@ def main() -> int:
                 "ptxas": [ln.strip() for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln]},
          context_s=time.perf_counter() - t0, clock_max_hz=clock_hz)
-    k1_sass = sass_mix(lib_path, "fused_ingest_kernel")
+    k1_sass = k1_sass_check(lib_path, log)
     emit(k1_sass=k1_sass)
     emit(k2_sass=k2_sass(lib_path, log))
+    emit(k6_sass=k6_sass(lib_path, log))
 
     from repro_torch.data import inject_near_duplicates, make_i2b2_like
 
@@ -471,16 +477,98 @@ def k2_sass(lib_path, log: str) -> list[dict]:
     return sorted(out, key=lambda r: (r["entry"], r["path"], r["G"]))
 
 
+# K1's instantiations, one for each S (seeds a lane), and K6's, one for each
+# path (16-byte or scalar).
+K1_KERNEL = re.compile(r"fused_ingest_kernelILi(\d+)E")
+K6_KERNEL = re.compile(r"byte_token_hashes_kernelILb([01])E")
+# K1's min loop, read from the instantiation the main path runs (M 100,
+# rows of 256 tokens), must keep within these: ALU instructions a triple,
+# and SM clocks a triple at full issue.  They are a regression floor set
+# by the shipped loop (three SHF, three LOP3 and half a VIMNMX3 a triple,
+# 6.5 ALU instructions, plus 0.25 of loop overhead; it reads 6.625), not a
+# target: 5.5 and 0.09 a triple are reached only with fmix32's shifts on
+# the FMA pipe as IMAD.HI, which issues at half IMAD's rate on the H100
+# and measured slower (PERF.md).
+K1_MAX_ALU = 6.75
+K1_MAX_CYCLES = K1_MAX_ALU / ALU_LANES
+# K1's instantiations: one for each S of kSeedsPerLane.
+K1_SEEDS_PER_LANE = (1, 2, 4, 8)
+# IMAD forms that issue at half IMAD's rate on the H100, two FMA-pipe
+# slots each (PERF.md).
+HALF_RATE_IMAD = ("IMAD.HI", "IMAD.WIDE")
+
+
+def spill_free(rows: list[dict]) -> bool:
+    return all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+               for r in rows)
+
+
+def k1_sass_check(lib_path, log: str) -> dict:
+    """K1's build read back: the main path's min loop (``sass_mix``) and
+    ptxas's registers and spills for each S.  Fails where the loop spends
+    more than ``K1_MAX_ALU`` ALU instructions or ``K1_MAX_CYCLES`` clocks
+    a triple, or any instantiation spills."""
+    from repro_torch.kernels import fused_ingest as k1
+
+    plan = k1.schedule(100, 256)
+    mix = sass_mix(lib_path, f"fused_ingest_kernelILi{plan['S']}E")
+    ptxas = sorted(({"S": int(K1_KERNEL.search(name).group(1)), **rep}
+                    for name, rep in ptxas_entries(log).items()
+                    if K1_KERNEL.search(name)), key=lambda r: r["S"])
+    check(mix["per_triple"]["alu"] <= K1_MAX_ALU,
+          f"K1's min loop: at most {K1_MAX_ALU} ALU instructions a triple "
+          f"({mix['per_triple']})")
+    check(mix["cycles_per_triple"] <= K1_MAX_CYCLES,
+          f"K1's min loop: at most {K1_MAX_CYCLES} clocks a triple "
+          f"({mix['cycles_per_triple']})")
+    check(tuple(r["S"] for r in ptxas) == K1_SEEDS_PER_LANE
+          and spill_free(ptxas),
+          f"K1: an instantiation for each S, none spilling ({ptxas})")
+    return mix | {"lane_map": plan, "ptxas": ptxas}
+
+
+def k6_sass(lib_path, log: str) -> list[dict]:
+    """K6's build read back: each path's global loads and stores in SASS
+    (``.128`` is 16 bytes) and ptxas's registers and spills.  Fails unless
+    the vector path loads and stores 16 bytes at a time and neither path
+    spills."""
+    ptxas = {K6_KERNEL.search(name).group(1) == "1": rep
+             for name, rep in ptxas_entries(log).items()
+             if K6_KERNEL.search(name)}
+    out = []
+    for name, listing in sass_functions(lib_path).items():
+        m = K6_KERNEL.search(name)
+        if m is None:
+            continue
+        vec = m.group(1) == "1"
+        loads = re.findall(r"\bLDG\.[A-Z0-9_.]*", listing)
+        stores = re.findall(r"\bSTG\.[A-Z0-9_.]*", listing)
+        out.append({"path": "vector" if vec else "scalar",
+                    "ldg_128": sum(".128" in op for op in loads),
+                    "stg_128": sum(".128" in op for op in stores),
+                    "ldg_kinds": sorted(set(loads)),
+                    "stg_kinds": sorted(set(stores)), **ptxas.get(vec, {})})
+    vec = [r for r in out if r["path"] == "vector"]
+    check(len(vec) == 1 and vec[0]["ldg_128"] > 0 and vec[0]["stg_128"] > 0,
+          f"K6's vector path loads and stores 16 bytes at a time ({out})")
+    check(len(out) == 2 and spill_free(out), f"K6: no spills ({out})")
+    return sorted(out, key=lambda r: r["path"])
+
+
 def sass_mix(lib_path, kernel: str) -> dict:
     """The instruction mix of ``kernel``'s min loop, per (position, seed) triple.
 
-    Reads the built library with ``cuobjdump -sass``, takes the loop
-    (a backward branch) densest in min operations, and sorts its
-    instructions by pipe: ``fma`` (IMAD in all its forms), ``alu``
-    (``ALU_OPS``) and ``other`` (shared-memory loads, branches).  A
-    three-input min is two triples.  ``cycles_per_triple`` is the SM
-    clocks the loop needs per triple at full issue: the largest of ALU
-    and FMA pipe work over 64 lanes and all instructions over 128.
+    Reads the built library with ``cuobjdump -sass``, takes the loop (a
+    backward branch) densest in min operations among those that also hold
+    the hash's two multiplies a triple and, where the kernel reads 16
+    bytes of shared memory anywhere, such a read (a loop that only takes
+    minima, such as a reduction, is not the min loop), and sorts its
+    instructions by pipe: ``fma`` (IMAD in all its forms, in FMA-pipe
+    slots: two for ``HALF_RATE_IMAD``), ``alu`` (``ALU_OPS``) and
+    ``other`` (shared-memory loads, branches).  A three-input min is two
+    triples.  ``cycles_per_triple`` is the SM clocks the loop needs per
+    triple at full issue: the largest of ALU and FMA pipe work over 64
+    lanes and all instructions over 128.
     """
     listing = next(f for name, f in sass_functions(lib_path).items()
                    if kernel in name)
@@ -499,14 +587,26 @@ def sass_mix(lib_path, kernel: str) -> dict:
             lo = int(target.group(1), 16)
             loops.append([x for x in ins if lo <= x[0] <= addr])
     check(bool(loops), f"{kernel}: no loop in the SASS listing")
-    body = max(loops, key=lambda b: mins(b) / len(b))
+
+    vec_reads = any(op == "LDS.128" for _, op, _ in ins)
+
+    def hashes(body):
+        ops = [op for _, op, _ in body]
+        return (sum(op.split(".")[0] == "IMAD" for op in ops)
+                >= 2 * mins(body) > 0
+                and (not vec_reads or "LDS.128" in ops))
+
+    body = max([b for b in loops if hashes(b)] or loops,
+               key=lambda b: mins(b) / len(b))
     triples = mins(body)
     check(triples > 0, f"{kernel}: no min loop in the SASS listing")
     pipes = {"alu": 0, "fma": 0, "other": 0}
     for _, op, _ in body:
         base = op.split(".")[0]
-        pipes["fma" if base == "IMAD" else "alu" if base in ALU_OPS
-              else "other"] += 1
+        if base == "IMAD":
+            pipes["fma"] += 2 if op.startswith(HALF_RATE_IMAD) else 1
+        else:
+            pipes["alu" if base in ALU_OPS else "other"] += 1
     per = {k: v / triples for k, v in pipes.items()}
     issue = len(body) / triples
     return {"loop": f"{body[0][0]:#x}-{body[-1][0]:#x}",
@@ -672,6 +772,7 @@ def phase_a(torch, clock_hz: float, notes: list[str]):
                "launches": launches["fused_ingest"], "max_abs_err": k1_err,
                "ms": k1_ms, "plain_ms": k1_plain_ms,
                "shape": {"D": D, "L": int(packed.tokens.shape[1]), "M": M},
+               "lane_map": k1.schedule(M, int(packed.tokens.shape[1])),
                **k1_bound(torch, lengths, packed.tokens.shape[1], M,
                           cfg.ngram, cfg.rows_per_band, clock_hz)}
     k2_line = {"name": "pair_counts", **common,
@@ -743,6 +844,10 @@ def phase_a2(torch, clock_hz: float, notes: list[str]) -> dict:
     k6_plain_ms = cuda_ms(
         torch, lambda: k6.byte_token_hashes_plain(buf, lengths), 2)
     token_bytes = token_byte_count(torch, buf, lengths)
+    k6_path = k6.schedule(buf, tok_k, ends_k)
+    ingest_split = bytes_to_bands_split(
+        torch, torch.from_numpy(packed.data).cuda(), lengths, seeds,
+        cfg.ngram, cfg.rows_per_band, 10)
 
     # The host chain without stemming, on the card.
     t0 = time.perf_counter()
@@ -790,13 +895,14 @@ def phase_a2(torch, clock_hz: float, notes: list[str]) -> dict:
         "duplicates_removed": res.num_duplicates_removed,
         "pairs_evaluated": res.stats.pairs_evaluated,
         "launches": launches, "host_chain_s": host_chain_s,
-        "plain_cluster_s": plain_cluster_s, "plain_match": True})
+        "plain_cluster_s": plain_cluster_s, "plain_match": True,
+        "bytes_to_bands_split_ms": ingest_split})
     return {"name": "byte_token_hashes", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/byte_shingle.cu",
             "replaces": "src/repro/kernels/byte_shingle.py:102",
             "launches": launches["byte_token_hashes"], "max_abs_err": k6_err,
             "ms": k6_ms, "plain_ms": k6_plain_ms, "library_ms": None,
-            "match": True, "shape": {"D": D, "W": LB + 1},
+            "match": True, "shape": {"D": D, "W": LB + 1}, "path": k6_path,
             **k6_bound(D, LB + 1, token_bytes, int(counts_p.sum()),
                        clock_hz)}
 
@@ -812,6 +918,48 @@ def token_byte_count(torch, data, lengths, rows: int = 1 << 16) -> int:
         alnum = ((lower >= 97) & (lower <= 122)) | ((b >= 48) & (b <= 57))
         total += int((alnum & (pos < lengths[s : s + rows, None])).sum())
     return total
+
+
+def bytes_to_bands_split(torch, data, lengths, seeds, n: int, r: int,
+                         reps: int) -> dict:
+    """``bytes_to_bands`` step by step as it runs them (pad, K6, the
+    compaction, K1), with CUDA events between the steps: ms a call, the
+    mean over ``reps`` calls run back to back after one warm-up, as
+    ``cuda_ms`` times the whole.  Its outputs are held to
+    ``bytes_to_bands``'s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import byte_shingle as k6
+    from repro_torch.kernels import fused_ingest as k1
+
+    width = (data.shape[1] + 1) // 2 + 1
+    names = ("pad", "byte_token_hashes", "compaction", "fused_ingest")
+
+    def run(ev):
+        ev[0].record()
+        buf = F.pad(data, (0, 1))
+        ev[1].record()
+        tok, ends = k6.byte_token_hashes(buf, lengths)
+        ev[2].record()
+        tokens, counts = k6.compact_tokens(tok, ends, width)
+        ev[3].record()
+        sig, bands, _ = k1.fused_ingest(tokens, counts, seeds, n=n, r=r)
+        ev[4].record()
+        return sig, bands, counts
+
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+              for _ in range(reps + 1)]
+    got = run(events[0])
+    torch.cuda.synchronize()
+    for ev in events[1:]:
+        run(ev)
+    torch.cuda.synchronize()
+    ms = {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in events[1:]) / reps
+          for i, name in enumerate(names)}
+    want = k6.bytes_to_bands(data, lengths, seeds, n=n, r=r)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "bytes_to_bands step by step == bytes_to_bands")
+    return ms | {"sum": sum(ms.values())}
 
 
 # -- phase A3: the staged kernels -------------------------------------------------
@@ -1662,6 +1810,7 @@ def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
     loop_ms = (k1_sass["cycles_per_triple"] * k1_b["triples"]
                / (SMS * clock_hz) * 1e3)
     k1_out = {"shape": {"D": D, "L": L, "M": M}, "ms": k1_ms,
+              "lane_map": k1.schedule(M, L),
               "plain_ms": k1_plain_ms, "max_abs_err": k1_err, **k1_b,
               "emitted_loop_ms": loop_ms,
               "clocks_under_load": clocks_under_load(
@@ -1894,6 +2043,7 @@ def phase_b_bytes(torch, clock_hz, g, seeds, n: int, r: int) -> dict:
     chain_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     chain_ms = cuda_ms(torch, lambda: k6.bytes_to_bands(data, lengths, seeds,
                                                         n=n, r=r), 3)
+    split = bytes_to_bands_split(torch, data, lengths, seeds, n, r, 3)
     buf = F.pad(data, (0, 1))
     tok, ends = k6.byte_token_hashes(buf, lengths)
     k6_ms = cuda_ms(torch, lambda: k6.byte_token_hashes(buf, lengths), 5)
@@ -1918,10 +2068,12 @@ def phase_b_bytes(torch, clock_hz, g, seeds, n: int, r: int) -> dict:
     check(chain_err == 0,
           "paper-scale bytes_to_bands == K6 plain + compaction + K1 plain")
     token_bytes = token_byte_count(torch, buf, lengths)
-    out = {"shape": {"D": D, "W": LB + 1}, "ms": k6_ms,
+    path = k6.schedule(buf, tok, ends)
+    out = {"shape": {"D": D, "W": LB + 1}, "ms": k6_ms, "path": path,
            "plain_ms": timer.ms(), "max_abs_err": k6_err,
            **k6_bound(D, LB + 1, token_bytes, int(counts.sum()), clock_hz),
-           "bytes_to_bands_ms": chain_ms, "bytes_to_bands_err": chain_err,
+           "bytes_to_bands_ms": chain_ms, "bytes_to_bands_split_ms": split,
+           "bytes_to_bands_err": chain_err,
            "bytes_to_bands_peak_gib": chain_peak_gib,
            "tokens_mean": float(counts.double().mean()),
            "tokens_max": int(counts.max())}

@@ -74,8 +74,11 @@ from repro_torch.core.verify import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import sigjaccard
-from repro_torch.kernels.byte_shingle import bytes_to_bands
-from repro_torch.kernels.fused_ingest import fused_ingest
+# Modules, not their functions: importing kernels.fused_ingest or
+# kernels.byte_shingle first imports this package, which must then not ask
+# for names those modules have not defined yet.
+from repro_torch.kernels import byte_shingle as k6
+from repro_torch.kernels import fused_ingest as k1
 
 # U32_MAX as an int32 word: the empty slot of every buffer.
 INVALID = -1
@@ -302,11 +305,11 @@ def _local_prepare(tokens, lengths, seeds, cfg: DistLSHConfig):
     # reference's shape-bucketing rule does not apply to these calls.
     if cfg.byte_ingest:
         # repro-lint: disable=RPR003 -- eager PyTorch, nothing recompiles
-        sig, bands, _ = bytes_to_bands(tokens, lengths, seeds, n=n, r=r)
+        sig, bands, _ = k6.bytes_to_bands(tokens, lengths, seeds, n=n, r=r)
         return sig, bands
     if cfg.fused_ingest:
         # repro-lint: disable=RPR003 -- eager PyTorch, nothing recompiles
-        sig, bands, _ = fused_ingest(tokens, lengths, seeds, n=n, r=r)
+        sig, bands, _ = k1.fused_ingest(tokens, lengths, seeds, n=n, r=r)
         return sig, bands
     ng, valid = shingle.ngram_hashes(tokens, lengths, n=n)
     sig = minhash.signatures(ng, valid, seeds, m_chunk=cfg.m_chunk)

@@ -34,8 +34,11 @@ from repro_torch.core.verify import (
     SignatureVerifier,
 )
 from repro_torch.device import resolve_device
-from repro_torch.kernels.byte_shingle import bytes_to_bands
-from repro_torch.kernels.fused_ingest import fused_ingest
+# Modules, not their functions: importing kernels.fused_ingest or
+# kernels.byte_shingle first imports this package, which must then not ask
+# for names those modules have not defined yet.
+from repro_torch.kernels import byte_shingle as k6
+from repro_torch.kernels import fused_ingest as k1
 from repro_torch.kernels.minhash import minhash_signatures
 from repro_torch.kernels.ngram import ngram_hashes
 
@@ -177,7 +180,7 @@ class DedupPipeline:
         self._sync()
         t2 = time.perf_counter()
         if cfg.fused_ingest:
-            sig, bands, _ = fused_ingest(tokens, lengths, seeds, n=cfg.ngram,
+            sig, bands, _ = k1.fused_ingest(tokens, lengths, seeds, n=cfg.ngram,
                                          r=cfg.rows_per_band)
         elif cfg.use_kernels:
             ng, valid = ngram_hashes(tokens, lengths, n=cfg.ngram)
@@ -209,7 +212,7 @@ class DedupPipeline:
         seeds = u32_from_numpy(self.seeds, self.device)
         self._sync()
         t2 = time.perf_counter()
-        sig, bands, _ = bytes_to_bands(data, lengths, seeds, n=cfg.ngram,
+        sig, bands, _ = k6.bytes_to_bands(data, lengths, seeds, n=cfg.ngram,
                                        r=cfg.rows_per_band)
         self._sync()
         self.stage_timings.update(pack_s=t1 - t0, upload_s=t2 - t1,

@@ -40,6 +40,8 @@ _EXPORTS = {
                                            _P], _I),
     "masked_pair_counts_launch": ([_P, _P, _I, _P, _I64, _P, _P], _I),
     "pair_counts_schedule": ([_I, _P, _P], _I),
+    "fused_ingest_schedule": ([_I, _I, _P], _I),
+    "byte_token_hashes_schedule": ([_P, _P, _P], _I),
     "ngram_hashes_launch": ([_P, _P, _I64, _I, _I, _P], _I),
     "minhash_launch": ([_P, _P, _P, _P, _I64, _I, _I, _P], _I),
     "band_values_launch": ([_P, _P, _I64, _I, _I, _P], _I),

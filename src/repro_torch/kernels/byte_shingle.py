@@ -9,7 +9,10 @@ token ends (exclusive), ``ends`` is 1 and ``tok`` holds
 That is ``shingle.token_ids(shingle.tokenize(text, do_stem=False))``
 position by position.  It launches the CUDA kernel
 (``csrc/byte_shingle.cu``) for tensors on the card and runs
-``byte_token_hashes_plain`` for tensors on the CPU.
+``byte_token_hashes_plain`` for tensors on the CPU.  The kernel takes
+the flat matrix 16 positions a thread, with 16-byte loads and stores
+where all three base pointers are 16-byte aligned and 1- and 4-byte ones
+otherwise; ``schedule`` asks the library which.
 
 ``bytes_to_bands`` is the whole byte ingest: K6, a compaction of the
 token ends into a dense token matrix (plain tensor code), then K1.  Its
@@ -29,13 +32,21 @@ from repro_torch.core.hashing import (
     to_bits,
 )
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_ingest import fused_ingest
+from repro_torch.kernels import fused_ingest as k1
 
 # Seed of the token-id hash (``core.shingle.token_ids``'s default).
 TOKEN_SEED = 0x7045
 
 # Kernel launches made by ``byte_token_hashes`` in this process.
 launches = 0
+
+
+def schedule(data: torch.Tensor, tok: torch.Tensor, ends: torch.Tensor) -> str:
+    """``"vector"`` or ``"scalar"``: the path a launch over these three
+    card tensors' base pointers takes (``byte_token_hashes_schedule``)."""
+    s = build.library().byte_token_hashes_schedule(
+        data.data_ptr(), tok.data_ptr(), ends.data_ptr())
+    return "vector" if s > 0 else "scalar"
 
 
 def byte_token_hashes_plain(data: torch.Tensor, lengths: torch.Tensor,
@@ -152,5 +163,5 @@ def bytes_to_bands(data: torch.Tensor, lengths: torch.Tensor,
     # hold every row's tokens; the width follows the bucketed LB.
     lt_bucket = (LB + 1) // 2 + 1
     tokens, counts = compact_tokens(tok, ends, lt_bucket)
-    sig, bands, _ = fused_ingest(tokens, counts, seeds, n=n, r=r)
+    sig, bands, _ = k1.fused_ingest(tokens, counts, seeds, n=n, r=r)
     return sig, bands, counts

@@ -5,22 +5,41 @@
 // (body _fused_kernel).  On the TPU the L axis was the innermost,
 // sequential grid axis and the running minimum sat in the resident output
 // block; here blocks run in any order, so the L axis is a loop inside the
-// block and the minimum lives in shared memory owned by one thread per seed.
+// block and the running minima live in registers, then in shared memory.
 //
 // What bounds it on the card: integer work.  Every (document, valid
-// position, seed) triple costs about ten 32-bit integer operations: the
-// seed add, fmix32's two multiplies and three shift/xor pairs, and half a
-// min (sm_90's three-input min takes two values at once).  Multiplies
-// issue to the FMA pipe, xor and min to the ALU pipe, and adds and shifts
-// may go to either, so at best the loop runs at the issue rate of four
-// warp instructions per SM and clock; as compiled, the shifts sit on the
-// ALU pipe, which then bounds the loop.  The bytes moved (tokens in;
-// signatures, bands and validity out) take a sixth of that time at the
-// memory rate.  The design keeps the pipes on useful work: each n-gram hash is
-// computed once per position into shared memory and then read by every seed
-// thread as a broadcast, positions past a document's valid range are never
-// hashed, and the band fold reads the finished signature row from shared
-// memory, so signatures cross device memory once, as output.
+// position, seed) triple costs the seed's multiply-add, fmix32 (two
+// multiplies, three shifts, three xors) and half a min (sm_90's
+// three-input min takes two values at once).  Multiplies issue to the FMA
+// pipe and xors and mins to the ALU pipe.  A right shift can run on the
+// FMA pipe as the high word of a product, x >> k == hi32(x * 2^(32-k)),
+// but on the H100 IMAD.HI and IMAD.WIDE issue at half IMAD's rate (31.4
+// and 31.6 against 63.6 lanes an SM and clock, PERF.md), so a shift moved
+// there costs the FMA pipe two slots and saves the ALU pipe one; measured,
+// every such form was slower.  The shifts stay on the ALU
+// pipe (SHF): 6.6 ALU and 3.1 FMA instructions a triple, 0.104 clocks a
+// triple at full issue (a loop of one thread a seed took 7.25 and 0.113).
+// The bytes moved (tokens in; signatures, bands and validity out) take a
+// sixth of the operations' time at the memory rate.  The design:
+//
+//   * A lane map sized to M (fused_ingest_schedule).  A lane keeps S seeds
+//     in registers; ceil(M / S) lanes cover the seeds, and the block's
+//     kThreads / lanes groups of lanes share the work of its rows.  At
+//     M = 100: S = 4, 5 groups of 25 lanes, 125 of 128 lanes (78 % with
+//     one lane a seed).
+//   * Several rows a block (docs: as many as fit kPool positions whole, 8
+//     at L = 256), so the block's fixed costs (its launch, three barriers,
+//     the latency of its first loads) are shared, and one pool of n-gram
+//     hashes in shared memory: each row's hashes in turn, padded to whole
+//     quads with the row's first hash (a repeated value leaves a minimum
+//     unchanged).  Group q walks quads q, q + groups, ... of the pool, so
+//     the groups' work differs by at most a quad whatever the rows'
+//     lengths; a lane's minima leave it by a shared-memory atomic minimum
+//     each time its walk leaves a row.  A row longer than kPool is walked
+//     in rounds of kPool positions, one row a block.
+//   * A lane reads four hashes with one 16-byte broadcast load, which
+//     feeds 4 x S triples.  The rows' tokens reach shared memory by
+//     cp.async, the validity flags leave four to a store.
 //
 // Bits: every operation is uint32 arithmetic with wraparound, as in the
 // JAX kernel.  The window of position l reads the matrix's own values up
@@ -34,68 +53,272 @@
 
 namespace {
 
-using repro::fold_lane;
 using repro::hash_u32;
 using repro::kLaneSeed0;
 using repro::kLaneSeed1;
-using repro::ngram_hash;
 
 constexpr int kThreads = 128;
-// Positions per L tile: long documents (pow2-bucketed widths reach 4096
-// and more) are walked tile by tile so shared memory stays small.
-constexpr int kMaxTile = 1024;
+// Blocks an SM the kernel is compiled for: at most 51 registers a thread.
+constexpr int kMinBlocks = 10;
+// Positions of a block's pool of n-gram hashes: rows of at most kPool
+// positions share it, several to a block; a longer row is walked in
+// rounds of kPool positions.
+constexpr int kPool = 2048;
+constexpr int kMaxDocs = 32;      // documents a block
+constexpr int kPartWords = 4096;  // the block's running minima, docs x M
 
-// One block per document.  Shared memory: tok[tile + n - 1] (the tile's
-// tokens plus the window halo), ng[tile] (n-gram hashes), sig[M].
-__global__ void __launch_bounds__(kThreads) fused_ingest_kernel(
-    const uint32_t* __restrict__ tokens, const int32_t* __restrict__ lengths,
-    const uint32_t* __restrict__ seeds, uint32_t* __restrict__ sig,
-    uint32_t* __restrict__ bands, bool* __restrict__ valid, int L, int M,
-    int n, int r, int tile) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* tok = smem;
-  uint32_t* ng = tok + tile + n - 1;
-  uint32_t* srow = ng + tile;
+// The lane map of one launch; fused_ingest_schedule reports it.
+struct Plan {
+  int S;       // seeds a lane
+  int lanes;   // lanes a group (ceil(M / S), at most kThreads)
+  int passes;  // rounds over the seeds, where ceil(M / S) > kThreads
+  int slices;  // groups of lanes sharing the rows, kThreads / lanes
+  int docs;    // documents a block
+  int tile;    // positions of a row a round holds (a multiple of 4)
+};
 
-  const int64_t d = blockIdx.x;
-  const uint32_t* row = tokens + d * L;
-  const int len = lengths[d];
-  const int nvalid = min(L, len >= n ? len - n + 1 : (len > 0 ? 1 : 0));
+// Seeds a lane, in order of preference where two give the same lane use.
+constexpr int kSeedsPerLane[] = {4, 8, 2, 1};
 
-  bool* vrow = valid + d * L;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) vrow[l] = l < nvalid;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) srow[m] = 0xFFFFFFFFu;
-
-  for (int l0 = 0; l0 < nvalid; l0 += tile) {
-    const int nt = min(tile, nvalid - l0);
-    __syncthreads();  // the previous tile's readers are done with tok/ng
-    for (int i = threadIdx.x; i < nt + n - 1; i += blockDim.x) {
-      const int l = l0 + i;
-      tok[i] = l < L ? row[l] : 0u;
+Plan make_plan(int M, int L) {
+  const int quads = (L + 3) / 4;
+  Plan best{};
+  int64_t best_num = -1, best_den = 1;
+  for (const int S : kSeedsPerLane) {
+    Plan p{};
+    p.S = S;
+    const int groups = (M + S - 1) / S;
+    if (groups >= kThreads) {
+      p.lanes = kThreads;
+      p.passes = (groups + kThreads - 1) / kThreads;
+    } else {
+      p.lanes = groups;
+      p.passes = 1;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nt; i += blockDim.x)
-      ng[i] = ngram_hash(tok + i, n);
-    __syncthreads();
-    for (int m = threadIdx.x; m < M; m += blockDim.x) {
-      const uint32_t s = seeds[m];
-      uint32_t mn = srow[m];
-      for (int i = 0; i < nt; ++i) mn = min(mn, hash_u32(ng[i], s));
-      srow[m] = mn;
+    p.slices = kThreads / p.lanes;
+    // Lane use: M slices / (kThreads S passes).
+    const int64_t num = static_cast<int64_t>(M) * p.slices;
+    const int64_t den = static_cast<int64_t>(S) * p.passes;
+    if (num * best_den > best_num * den) {
+      best = p;
+      best_num = num;
+      best_den = den;
     }
   }
-  __syncthreads();
+  int docs = kPool / (4 * quads);
+  docs = docs < kMaxDocs ? docs : kMaxDocs;
+  docs = docs < kPartWords / M ? docs : kPartWords / M;
+  best.docs = docs > 1 ? docs : 1;
+  best.tile = 4 * quads < kPool ? 4 * quads : kPool;
+  return best;
+}
 
-  for (int m = threadIdx.x; m < M; m += blockDim.x) sig[d * M + m] = srow[m];
-  const int b = M / r;
-  for (int j = threadIdx.x; j < 2 * b; j += blockDim.x) {
-    const int band = j >> 1;
-    bands[(d * b + band) * 2 + (j & 1)] =
-        fold_lane(srow + band * r, r, (j & 1) ? kLaneSeed1 : kLaneSeed0);
+size_t smem_bytes(const Plan& p, int M, int n) {
+  return sizeof(uint32_t) * static_cast<size_t>(p.docs) *
+         (2 * static_cast<size_t>(p.tile) + n - 1 + static_cast<size_t>(M));
+}
+
+__device__ __forceinline__ uint32_t min3(uint32_t a, uint32_t b, uint32_t c) {
+  return min(a, min(b, c));
+}
+
+// f(row, col) for the cells of a rows x cols grid, this thread taking cells
+// threadIdx.x, threadIdx.x + kThreads, ... in row-major order, with one
+// division for the whole walk.
+template <class F>
+__device__ __forceinline__ void for_cells(int rows, int cols, F f) {
+  int row = threadIdx.x / cols, col = threadIdx.x - row * cols;
+  while (row < rows) {
+    f(row, col);
+    col += kThreads;
+    while (col >= cols) {
+      col -= cols;
+      ++row;
+    }
   }
 }
 
+// A 4-byte copy from device memory to shared memory that the thread does
+// not wait for (cp.async); zeros where `fill` is false.
+__device__ __forceinline__ void copy_async(uint32_t* dst, const uint32_t* src,
+                                           bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(fill ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Shared memory: pool[docs x tile] (a round's n-gram hashes, document by
+// document, each padded to whole quads; 16-byte aligned), tok[docs][tile +
+// n - 1] (a round's tokens with the window halo), part[docs][M] (running
+// minima).
+template <int S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_ingest_kernel(
+    const uint32_t* __restrict__ tokens, const int32_t* __restrict__ lengths,
+    const uint32_t* __restrict__ seeds, uint32_t* __restrict__ sig,
+    uint32_t* __restrict__ bands, bool* __restrict__ valid, int64_t D, int L,
+    int M, int n, int r, Plan p) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int nv[kMaxDocs];          // valid positions of each document
+  __shared__ int qs[kMaxDocs + 1];      // its first quad in the pool
+  const int tile = p.tile, span = p.tile + n - 1, slices = p.slices;
+  uint32_t* pool = smem;
+  uint32_t* tok = pool + p.docs * tile;
+  uint32_t* part = tok + p.docs * span;
+
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * p.docs;
+  const int ndocs = static_cast<int>(D - d0 < p.docs ? D - d0 : p.docs);
+  // This lane: seed lane g of lane group q.
+  const int g = threadIdx.x % p.lanes;
+  const int q = threadIdx.x / p.lanes;
+  // The seeds of the first pass, in registers for the whole block.
+  uint32_t s0[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) s0[k] = __ldg(seeds + min(g * S + k, M - 1));
+
+  if (threadIdx.x < 32) {  // valid positions, and each row's first quad
+    int v = 0;
+    if (threadIdx.x < ndocs) {
+      const int len = __ldg(lengths + d0 + threadIdx.x);
+      v = min(L, len >= n ? len - n + 1 : (len > 0 ? 1 : 0));
+      nv[threadIdx.x] = v;
+    }
+    int c = (min(v, tile) + 3) >> 2;  // quads in the first round
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xFFFFFFFFu, c, o);
+      if (threadIdx.x >= o) c += up;
+    }
+    if (threadIdx.x < ndocs) qs[threadIdx.x + 1] = c;
+    if (threadIdx.x == 0) qs[0] = 0;
+  }
+  for (int i = threadIdx.x; i < ndocs * M; i += kThreads) part[i] = 0xFFFFFFFFu;
+  // The first round's tokens (zeros past column L), in flight meanwhile.
+  for_cells(ndocs, span, [&](int bb, int j) {
+    const uint32_t* row = tokens + (d0 + bb) * L;
+    copy_async(tok + bb * span + j, row + (j < L ? j : 0), j < L);
+  });
+  copy_async_wait_all();
+  __syncthreads();
+  // Block-uniform: several documents a block each fit one round.
+  const int rounds = p.docs == 1 ? (nv[0] + tile - 1) / tile : 1;
+
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int l0 = rd * tile;
+    if (rd > 0) {  // a long row: the next round's tokens
+      __syncthreads();  // the previous round's readers are done
+      for (int j = threadIdx.x; j < span; j += kThreads)
+        copy_async(tok + j, tokens + d0 * L + (l0 + j < L ? l0 + j : 0),
+                   l0 + j < L);
+      copy_async_wait_all();
+      __syncthreads();
+    }
+    const int nq_round = p.docs == 1 ? (min(tile, nv[0] - l0) + 3) >> 2 : 0;
+    // The round's n-gram hashes; a row's last quad is padded with its
+    // first hash of the round.
+    for_cells(ndocs, tile, [&](int bb, int j) {
+      const int nt = min(tile, nv[bb] - l0);
+      if (j < ((nt + 3) & ~3))
+        pool[4 * qs[bb] + j] =
+            repro::ngram_hash(tok + bb * span + (j < nt ? j : 0), n);
+    });
+    __syncthreads();
+    const uint4* pool4 = reinterpret_cast<const uint4*>(pool);
+    for (int pass = 0; pass < p.passes; ++pass) {
+      const int m0 = (pass * p.lanes + g) * S;
+      if (m0 >= M || q >= slices) break;  // lanes past the last group idle
+      uint32_t s[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k)
+        s[k] = pass == 0 ? s0[k] : __ldg(seeds + min(m0 + k, M - 1));
+      // Lane group q takes quads q, q + slices, ... of the pool; a row's
+      // minima go to part when the walk leaves it.
+      int j = q;
+      for (int bb = 0; bb < ndocs; ++bb) {
+        const int end = p.docs == 1 ? nq_round : qs[bb + 1];
+        if (j >= end) continue;
+        uint32_t mn[S];
+#pragma unroll
+        for (int k = 0; k < S; ++k) mn[k] = 0xFFFFFFFFu;
+#pragma unroll 1
+        for (; j < end; j += slices) {
+          const uint4 v = pool4[j];
+#pragma unroll
+          for (int k = 0; k < S; ++k) {
+            mn[k] = min3(mn[k], hash_u32(v.x, s[k]), hash_u32(v.y, s[k]));
+            mn[k] = min3(mn[k], hash_u32(v.z, s[k]), hash_u32(v.w, s[k]));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < S; ++k)
+          if (m0 + k < M) atomicMin(part + bb * M + m0 + k, mn[k]);
+      }
+    }
+    __syncthreads();
+  }
+
+  for_cells(ndocs, M, [&](int bb, int m) {
+    sig[(d0 + bb) * M + m] = part[bb * M + m];
+  });
+  const int nb = M / r;
+  for_cells(ndocs, 2 * nb, [&](int bb, int j) {
+    bands[(d0 + bb) * 2 * nb + j] = repro::fold_lane(
+        part + bb * M + (j >> 1) * r, r, (j & 1) ? kLaneSeed1 : kLaneSeed0);
+  });
+  if ((L & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(valid) & 3) == 0) {
+    // Four flags a 4-byte store.
+    uint32_t* vw = reinterpret_cast<uint32_t*>(valid + d0 * L);
+    for_cells(ndocs, L >> 2, [&](int bb, int w) {
+      const int l = 4 * w, v = nv[bb];
+      vw[bb * (L >> 2) + w] = (l < v ? 1u : 0u) | (l + 1 < v ? 1u << 8 : 0u) |
+                              (l + 2 < v ? 1u << 16 : 0u) |
+                              (l + 3 < v ? 1u << 24 : 0u);
+    });
+  } else {
+    for_cells(ndocs, L, [&](int bb, int l) {
+      valid[(d0 + bb) * L + l] = l < nv[bb];
+    });
+  }
+}
+
+template <int S>
+cudaError_t launch(const Plan& p, const void* tokens, const void* lengths,
+                   const void* seeds, void* sig, void* bands, void* valid,
+                   int64_t D, int L, int M, int n, int r, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p, M, n);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_ingest_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int64_t grid = (D + p.docs - 1) / p.docs;
+  fused_ingest_kernel<S><<<static_cast<unsigned>(grid), kThreads, smem,
+                           stream>>>(
+      static_cast<const uint32_t*>(tokens), static_cast<const int32_t*>(lengths),
+      static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(sig),
+      static_cast<uint32_t*>(bands), static_cast<bool*>(valid), D, L, M, n, r,
+      p);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The lane map a launch over rows of L tokens with M seeds takes:
+// out = {threads, S, lanes, passes, slices, docs, tile}.
+extern "C" int fused_ingest_schedule(int M, int L, int32_t* out) {
+  if (M <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = make_plan(M, L);
+  const int32_t v[] = {kThreads, p.S, p.lanes, p.passes, p.slices, p.docs,
+                       p.tile};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
 
 extern "C" int fused_ingest_launch(const void* tokens, const void* lengths,
                                    const void* seeds, void* sig, void* bands,
@@ -104,18 +327,15 @@ extern "C" int fused_ingest_launch(const void* tokens, const void* lengths,
   if (D <= 0 || D > 0x7FFFFFFF || L <= 0 || M <= 0 || n <= 0 || r <= 0 ||
       M % r != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tile = L < kMaxTile ? L : kMaxTile;
-  const size_t smem = sizeof(uint32_t) * (2 * static_cast<size_t>(tile) + n - 1 + M);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ingest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const Plan p = make_plan(M, L);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (p.S) {
+    case 1: e = launch<1>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
+    case 2: e = launch<2>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
+    case 4: e = launch<4>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
+    case 8: e = launch<8>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
+    default: e = cudaErrorInvalidValue;
   }
-  fused_ingest_kernel<<<static_cast<unsigned>(D), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(tokens), static_cast<const int32_t*>(lengths),
-      static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(sig),
-      static_cast<uint32_t*>(bands), static_cast<bool*>(valid), L, M, n, r, tile);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

@@ -6,11 +6,21 @@ kernel (``csrc/fused_ingest.cu``) for tensors on the card and runs
 ``fused_ingest_plain``, the same function as plain PyTorch, for tensors
 on the CPU.  The two agree bit for bit.
 
+The kernel's lane map (``csrc/fused_ingest.cu``): a block of ``threads``
+lanes takes ``docs`` rows; a lane keeps S seeds in registers, ``lanes`` =
+ceil(M / S) lanes cover the seeds (in ``passes`` rounds where that
+exceeds the block), and the block's ``slices`` groups of lanes share the
+quads of the rows' n-gram hashes; a row longer than the pool is walked
+in rounds of ``tile`` positions.  ``schedule`` asks the library for
+that choice.
+
 Words are uint32 carried as int32 bits (``core.hashing``): tokens (D, L),
 seeds (M,), signatures (D, M) and band values (D, M/r, 2) are int32
 tensors; lengths are int32; validity is bool.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -21,6 +31,17 @@ from repro_torch.kernels import build
 
 # Kernel launches made by ``fused_ingest`` in this process.
 launches = 0
+
+MAP_KEYS = ("threads", "S", "lanes", "passes", "slices", "docs", "tile")
+
+
+def schedule(M: int, L: int) -> dict:
+    """The lane map the built kernel takes for rows of L tokens and M
+    seeds (``fused_ingest_schedule``), keyed by ``MAP_KEYS``."""
+    out = (ctypes.c_int32 * len(MAP_KEYS))()
+    build.check_launch(build.library().fused_ingest_schedule(
+        M, L, ctypes.addressof(out)), "fused_ingest_schedule")
+    return dict(zip(MAP_KEYS, out))
 
 
 def fused_ingest_plain(tokens: torch.Tensor, lengths: torch.Tensor,

@@ -62,8 +62,15 @@ def _packed(D, L, M, seed, device):
     (300, 40, 16, 8, 2),
     (64, 5, 16, 8, 2),       # L < n
     (50, 33, 15, 3, 3),      # M not a multiple of the warp
-    (40, 2500, 100, 8, 2),   # L longer than one shared-memory tile
+    (40, 2500, 100, 8, 2),   # L longer than the pool: rounds
     (3, 64, 260, 8, 2),      # M larger than the block
+    (300, 5, 1, 8, 1),       # M = 1, L < n: 32 documents a block (kMaxDocs)
+    (1000, 256, 100, 8, 2),  # the main path's lane map: 25 lanes x 5 slices
+    (200, 7, 128, 8, 2),     # L < n, several documents a block
+    (130, 40, 128, 3, 4),    # r > 2
+    (37, 300, 260, 8, 2),    # S = 8, 33 lanes x 3 slices
+    (9, 4100, 260, 5, 5),    # rows over two rounds of the pool
+    (5, 64, 2050, 8, 2),     # seed lanes in passes
 ])
 def test_fused_ingest_kernel_matches_plain(cuda, D, L, M, n, r):
     args = _packed(D, L, M, seed=L, device=cuda)
@@ -73,6 +80,23 @@ def test_fused_ingest_kernel_matches_plain(cuda, D, L, M, n, r):
     assert k1.launches == 1
     for g, w in zip(got, k1.fused_ingest_plain(*args, n=n, r=r)):
         assert torch.equal(g, w)
+
+
+def test_ingest_schedules_match_the_python_side(cuda):
+    # K1's map as the CPU emulation walks it (tests/test_torch_ingest_schedule.py,
+    # which imports JAX only inside its reference tests).
+    from test_torch_ingest_schedule import lane_map
+
+    assert k1.schedule(1, 5)["docs"] == 32
+    for M in list(range(1, 300)) + [1000, 2050, 5000]:
+        for L in (1, 3, 5, 8, 40, 256, 1024, 1025, 2500, 4100):
+            assert k1.schedule(M, L) == lane_map(M, L), (M, L)
+    data = torch.zeros(4 * 16 + 1, dtype=torch.uint8, device=cuda)
+    out = torch.zeros(64, dtype=torch.int32, device=cuda)
+    assert k6.schedule(data, out, out) == "vector"
+    assert k6.schedule(data[1:], out, out) == "scalar"
+    assert k6.schedule(data, out[1:], out) == "scalar"
+    assert k6.schedule(data, out, out[3:]) == "scalar"
 
 
 def test_pair_counts_kernel_matches_plain(cuda):
@@ -185,7 +209,8 @@ def _text_bytes(D, LB, seed):
     return data, lengths
 
 
-@pytest.mark.parametrize("D,LB", [(257, 300), (40, 2049), (6, 5)])
+@pytest.mark.parametrize("D,LB", [(257, 300), (40, 2049), (6, 5), (301, 2),
+                                  (99, 17), (2049, 16), (7, 2049)])
 def test_byte_token_kernel_matches_plain(cuda, D, LB):
     data, lengths = _text_bytes(D, LB, seed=LB)
     data, lengths = (torch.from_numpy(x).to(cuda) for x in (data, lengths))
@@ -193,7 +218,25 @@ def test_byte_token_kernel_matches_plain(cuda, D, LB):
     got = k6.byte_token_hashes(data, lengths)
     torch.cuda.synchronize()
     assert k6.launches == 1
+    assert k6.schedule(data, *got) == "vector"
     for g, w in zip(got, k6.byte_token_hashes_plain(data, lengths)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("D,LB", [(40, 2049), (33, 5)])
+def test_byte_token_kernel_scalar_path_on_a_misaligned_view(cuda, D, LB):
+    """A view one byte into its storage is contiguous but not 16-byte
+    aligned: the kernel takes the scalar path, says so, and agrees."""
+    data, lengths = _text_bytes(D, LB, seed=LB + 1)
+    store = torch.zeros(D * LB + 1, dtype=torch.uint8, device=cuda)
+    view = store[1:].view(D, LB)
+    view.copy_(torch.from_numpy(data).to(cuda))
+    lengths = torch.from_numpy(lengths).to(cuda)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    got = k6.byte_token_hashes(view, lengths)
+    torch.cuda.synchronize()
+    assert k6.schedule(view, *got) == "scalar"
+    for g, w in zip(got, k6.byte_token_hashes_plain(view, lengths)):
         assert torch.equal(g, w)
 
 
