@@ -8,9 +8,11 @@ sm_90a) and reads the build back: K1's min loop on the main path's lane
 map (``k1_sass``: at most 6.75 ALU instructions and 6.75 / 64 SM clocks
 a (position, seed) triple, no spills in any instantiation), K2's and K7's
 instantiations (``k2_sass``: 16-byte loads, ``LDG.E.128``, and no spills
-in the vector path of each of the three pair-count entry points), and
-K6's two paths (``k6_sass``: ``LDG.E.128`` and ``STG.E.128`` in the
-vector path, no spills).  Every pair-count line says which path ran
+in the vector path of each of the three pair-count entry points),
+K6's and K3's two paths (``k6_sass``, ``k3_sass``: ``LDG.E.128`` and
+``STG.E.128`` in the vector path, no spills), and K4's min loop on the
+main path's lane map (``k4_sass``: K1's gate, no spills in any of its
+eight instantiations).  Every pair-count line says which path ran
 (16-byte or scalar loads) and G, the lanes a pair, and gives the
 gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs these phases:
 
@@ -30,9 +32,11 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   and pairs against a plain-signature ``ClusterAccumulator`` with the
   numpy verifier.
 * Phase A3, staged kernels: ``run`` with ``use_kernels`` and no fused
-  ingest, through K3 (n-gram hashes), K4 (minhash) and K2; every output
-  equals phase A's.  Then the ``kernels.ops`` entry point K3 -> K4 -> K5
-  (band fold) on phase A's matrix.
+  ingest, through K3 (n-gram hashes and validity, one launch), K4
+  (minhash) and K2; every output equals phase A's.  Then the
+  ``kernels.ops`` entry point K3 -> K4 -> K5 (band fold) on phase A's
+  matrix, each kernel against its plain version, K3's path and K4's
+  lane map and path reported, K3 and K4 also timed from a CUDA graph.
 * Phase S, the sharded step (``core.dist_lsh``) on the card over an
   NCCL process group of one rank, on phase A's packed matrix: stage 2
   on the host merge with K2, then on the device with K7 (masked pair
@@ -48,8 +52,9 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   K6 and ``bytes_to_bands`` on 524,288 text-like rows of 2,048 bytes,
   the latter also step by step with CUDA events between its steps (pad,
   K6, compaction, K1; phase A2 does the same on its notes).
-  Each kernel against its plain version bit for bit, and K4's
-  signatures and K5's bands against K1's.
+  Each kernel against its plain version bit for bit, K3's validity,
+  K4's signatures and K5's bands against K1's, and K4 once more under a
+  mask that is not a prefix (each row's odd positions cleared).
 * Phase S2, the sharded step at one ingest chunk: phase B's matrix with
   65,536 rows made copies of others, device stage 2, the step timed
   part by part (K1, each band group's prescreen, K7); every planted
@@ -147,7 +152,9 @@ def main() -> int:
     k1_sass = k1_sass_check(lib_path, log)
     emit(k1_sass=k1_sass)
     emit(k2_sass=k2_sass(lib_path, log))
-    emit(k6_sass=k6_sass(lib_path, log))
+    emit(k6_sass=io_sass(lib_path, log, K6_KERNEL, "K6"))
+    emit(k3_sass=io_sass(lib_path, log, K3_KERNEL, "K3"))
+    emit(k4_sass=k4_sass(lib_path, log))
 
     from repro_torch.data import inject_near_duplicates, make_i2b2_like
 
@@ -481,6 +488,9 @@ def k2_sass(lib_path, log: str) -> list[dict]:
 # path (16-byte or scalar).
 K1_KERNEL = re.compile(r"fused_ingest_kernelILi(\d+)E")
 K6_KERNEL = re.compile(r"byte_token_hashes_kernelILb([01])E")
+# K3's, one for each path, and K4's, one for each S and path.
+K3_KERNEL = re.compile(r"ngram_hashes_kernelILb([01])E")
+K4_KERNEL = re.compile(r"minhash_kernelILi(\d+)ELb([01])E")
 # K1's min loop, read from the instantiation the main path runs (M 100,
 # rows of 256 tokens), must keep within these: ALU instructions a triple,
 # and SM clocks a triple at full issue.  They are a regression floor set
@@ -527,17 +537,43 @@ def k1_sass_check(lib_path, log: str) -> dict:
     return mix | {"lane_map": plan, "ptxas": ptxas}
 
 
-def k6_sass(lib_path, log: str) -> list[dict]:
-    """K6's build read back: each path's global loads and stores in SASS
-    (``.128`` is 16 bytes) and ptxas's registers and spills.  Fails unless
-    the vector path loads and stores 16 bytes at a time and neither path
-    spills."""
-    ptxas = {K6_KERNEL.search(name).group(1) == "1": rep
-             for name, rep in ptxas_entries(log).items()
-             if K6_KERNEL.search(name)}
+def k4_sass(lib_path, log: str) -> dict:
+    """K4's build read back: the main path's min loop (``sass_mix``, the
+    16-byte path's instantiation) and ptxas's registers and spills for each
+    S and path.  Fails where the loop exceeds K1's gate (``K1_MAX_ALU``
+    ALU instructions, ``K1_MAX_CYCLES`` clocks a triple) or any
+    instantiation spills."""
+    from repro_torch.kernels import minhash as k4
+
+    plan = k4.schedule(100, 256)
+    mix = sass_mix(lib_path, f"minhash_kernelILi{plan['S']}ELb1E")
+    ptxas = sorted(({"S": int(m.group(1)),
+                     "path": "vector" if m.group(2) == "1" else "scalar", **rep}
+                    for name, rep in ptxas_entries(log).items()
+                    if (m := K4_KERNEL.search(name))),
+                   key=lambda r: (r["path"], r["S"]))
+    check(mix["per_triple"]["alu"] <= K1_MAX_ALU,
+          f"K4's min loop: at most {K1_MAX_ALU} ALU instructions a triple "
+          f"({mix['per_triple']})")
+    check(mix["cycles_per_triple"] <= K1_MAX_CYCLES,
+          f"K4's min loop: at most {K1_MAX_CYCLES} clocks a triple "
+          f"({mix['cycles_per_triple']})")
+    check(len(ptxas) == 2 * len(K1_SEEDS_PER_LANE) and spill_free(ptxas),
+          f"K4: an instantiation for each S and path, none spilling ({ptxas})")
+    return mix | {"lane_map": plan, "ptxas": ptxas}
+
+
+def io_sass(lib_path, log: str, kernel: re.Pattern, name: str) -> list[dict]:
+    """A streaming kernel's build read back (K3, K6): each path's global
+    loads and stores in SASS (``.128`` is 16 bytes) and ptxas's registers
+    and spills.  ``kernel`` matches its instantiations, group 1 the path
+    (1: vector).  Fails unless the vector path loads and stores 16 bytes
+    at a time and neither path spills."""
+    ptxas = {kernel.search(n).group(1) == "1": rep
+             for n, rep in ptxas_entries(log).items() if kernel.search(n)}
     out = []
-    for name, listing in sass_functions(lib_path).items():
-        m = K6_KERNEL.search(name)
+    for fn, listing in sass_functions(lib_path).items():
+        m = kernel.search(fn)
         if m is None:
             continue
         vec = m.group(1) == "1"
@@ -550,8 +586,8 @@ def k6_sass(lib_path, log: str) -> list[dict]:
                     "stg_kinds": sorted(set(stores)), **ptxas.get(vec, {})})
     vec = [r for r in out if r["path"] == "vector"]
     check(len(vec) == 1 and vec[0]["ldg_128"] > 0 and vec[0]["stg_128"] > 0,
-          f"K6's vector path loads and stores 16 bytes at a time ({out})")
-    check(len(out) == 2 and spill_free(out), f"K6: no spills ({out})")
+          f"{name}'s vector path loads and stores 16 bytes at a time ({out})")
+    check(len(out) == 2 and spill_free(out), f"{name}: no spills ({out})")
     return sorted(out, key=lambda r: r["path"])
 
 
@@ -969,7 +1005,6 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
 
     from repro_torch.core.hashing import u32_to_numpy
     from repro_torch.core.pipeline import DedupConfig, DedupPipeline
-    from repro_torch.core.shingle import ngram_valid
     from repro_torch.kernels import bandfold as k5
     from repro_torch.kernels import minhash as k4
     from repro_torch.kernels import ngram as k3
@@ -1024,7 +1059,6 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
     D, L = tokens.shape
     times = {
         "k3": cuda_ms(torch, lambda: k3.ngram_hashes(tokens, lengths, n=n), 20),
-        "k3_validity": cuda_ms(torch, lambda: ngram_valid(lengths, L, n), 20),
         "k3_plain": cuda_ms(
             torch, lambda: k3.ngram_hashes_plain(tokens, lengths, n=n), 3),
         "k4": cuda_ms(torch, lambda: k4.minhash_signatures(ng, valid, seeds),
@@ -1034,6 +1068,14 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
         "k5": cuda_ms(torch, lambda: k5.band_values(sig, r), 20),
         "k5_plain": cuda_ms(torch, lambda: k5.band_values_plain(sig, r), 3),
     }
+    # The same launches replayed from a CUDA graph: the device alone, with
+    # no host work between them.
+    device = {
+        "k3": graph_ms(torch, lambda: k3.ngram_hashes(tokens, lengths, n=n),
+                       20),
+        "k4": graph_ms(torch, lambda: k4.minhash_signatures(ng, valid, seeds),
+                       20),
+    }
     emit(phase_a3={"docs": D, "L": L, "run_s": run_s, "timings": res.timings,
                    "launches": launches, "ops_launches": ops_launches,
                    "phase_a_match": True})
@@ -1042,15 +1084,18 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
                "source": "src/repro_torch/kernels/csrc/ngram.cu",
                "replaces": "src/repro/kernels/ngram.py:40",
                "launches": launches["ngram_hashes"], "max_abs_err": k3_err,
-               "ms": times["k3"], "plain_ms": times["k3_plain"],
-               "validity_ms": times["k3_validity"],
+               "ms": times["k3"], "device_ms": device["k3"],
+               "plain_ms": times["k3_plain"], "with_validity": True,
+               "path": k3.schedule(tokens, ng, valid),
                "shape": {"D": D, "L": L, "n": n}, **k3_bound(D, L, n, clock_hz)}
     k4_line = {"name": "minhash_signatures", **common,
                "source": "src/repro_torch/kernels/csrc/minhash.cu",
                "replaces": "src/repro/kernels/minhash.py:56",
                "launches": launches["minhash_signatures"],
                "max_abs_err": k4_err, "ms": times["k4"],
-               "plain_ms": times["k4_plain"], "shape": {"D": D, "L": L, "M": M},
+               "device_ms": device["k4"], "plain_ms": times["k4_plain"],
+               "schedule": k4.schedule(M, L), "path": k4.path(ng, valid),
+               "shape": {"D": D, "L": L, "M": M},
                **k4_bound(valid, M, clock_hz)}
     k5_line = {"name": "band_values", **common,
                "source": "src/repro_torch/kernels/csrc/bandfold.cu",
@@ -1841,8 +1886,9 @@ def phase_b(torch, clock_hz: float, k1_sass: dict) -> dict:
 def phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig, bands, valid,
                    n: int, r: int) -> dict:
     """K3 -> K4 -> K5 on phase B's token matrix, each against its plain
-    version on the same inputs; K4's signatures and K5's bands are K1's."""
-    from repro_torch.core.shingle import ngram_valid
+    version on the same inputs; K3's validity, K4's signatures and K5's
+    bands are K1's.  K4 also runs under a mask that is not a prefix
+    (every other valid position cleared), against its plain version."""
     from repro_torch.kernels import bandfold as k5
     from repro_torch.kernels import minhash as k4
     from repro_torch.kernels import ngram as k3
@@ -1855,13 +1901,17 @@ def phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig, bands, valid,
     check(torch.equal(valid3, valid) and torch.equal(sig4, sig)
           and torch.equal(bands5, bands),
           "paper-scale K3 -> K4 -> K5 == K1's validity, signatures, bands")
+    odd = torch.arange(L, device=valid3.device) % 2 == 1
+    sparse = valid3 & ~odd  # each row's odd positions cleared
+    sig_sparse = k4.minhash_signatures(ng, sparse, seeds)
     ms = {"k3": cuda_ms(torch, lambda: k3.ngram_hashes(tokens, lengths, n=n), 5),
-          "k3_validity": cuda_ms(torch, lambda: ngram_valid(lengths, L, n), 5),
           "k4": cuda_ms(torch, lambda: k4.minhash_signatures(ng, valid3, seeds),
                         5),
+          "k4_sparse": cuda_ms(
+              torch, lambda: k4.minhash_signatures(ng, sparse, seeds), 5),
           "k5": cuda_ms(torch, lambda: k5.band_values(sig4, r), 5)}
-    timers = {k: ChunkTimer(torch) for k in ("k3", "k4", "k5")}
-    err = {"k3": 0, "k4": 0, "k5": 0}
+    timers = {k: ChunkTimer(torch) for k in ("k3", "k4", "k4_sparse", "k5")}
+    err = {k: 0 for k in timers}
     rows = 8192
     for s in range(0, D, rows):
         sl = slice(s, s + rows)
@@ -1869,26 +1919,38 @@ def phase_b_staged(torch, clock_hz, tokens, lengths, seeds, sig, bands, valid,
             png, pvalid = k3.ngram_hashes_plain(tokens[sl], lengths[sl], n=n)
         with timers["k4"]:
             psig = k4.minhash_signatures_plain(ng[sl], valid3[sl], seeds)
+        with timers["k4_sparse"]:
+            psparse = k4.minhash_signatures_plain(ng[sl], sparse[sl], seeds)
         with timers["k5"]:
             pbands = k5.band_values_plain(sig4[sl], r)
         err["k3"] = max(err["k3"], max_abs_err(ng[sl], png),
                         int((valid3[sl] != pvalid).sum()))
         err["k4"] = max(err["k4"], max_abs_err(sig4[sl], psig))
+        err["k4_sparse"] = max(err["k4_sparse"],
+                               max_abs_err(sig_sparse[sl], psparse))
         err["k5"] = max(err["k5"], max_abs_err(bands5[sl], pbands))
     check(all(e == 0 for e in err.values()),
-          "paper-scale K3, K4, K5 kernels == plain")
+          f"paper-scale K3, K4 (prefix and sparse masks), K5 kernels == plain "
+          f"({err})")
     out = {
         "ngram_hashes": {"shape": {"D": D, "L": L, "n": n}, "ms": ms["k3"],
-                         "validity_ms": ms["k3_validity"],
+                         "with_validity": True,
+                         "path": k3.schedule(tokens, ng, valid3),
                          **k3_bound(D, L, n, clock_hz)},
         "minhash_signatures": {"shape": {"D": D, "L": L, "M": M},
-                               "ms": ms["k4"], **k4_bound(valid3, M, clock_hz)},
+                               "ms": ms["k4"], "schedule": k4.schedule(M, L),
+                               "path": k4.path(ng, valid3),
+                               **k4_bound(valid3, M, clock_hz)},
         "band_values": {"shape": {"D": D, "M": M, "r": r}, "ms": ms["k5"],
                         **k5_bound(D, M, r, clock_hz)},
     }
     for name, key in (("ngram_hashes", "k3"), ("minhash_signatures", "k4"),
                       ("band_values", "k5")):
         out[name].update(plain_ms=timers[key].ms(), max_abs_err=err[key])
+    out["minhash_signatures"]["sparse_mask"] = {
+        "mask": "K1's validity with each row's odd positions cleared",
+        "ms": ms["k4_sparse"], "plain_ms": timers["k4_sparse"].ms(),
+        "max_abs_err": err["k4_sparse"], **k4_bound(sparse, M, clock_hz)}
     emit(phase_b_staged=out)
     return out
 

@@ -34,13 +34,13 @@ from repro_torch.core.verify import (
     SignatureVerifier,
 )
 from repro_torch.device import resolve_device
-# Modules, not their functions: importing kernels.fused_ingest or
-# kernels.byte_shingle first imports this package, which must then not ask
-# for names those modules have not defined yet.
+# Modules, not their functions: importing a kernel module first imports
+# this package, which must then not ask for names that module has not
+# defined yet.
 from repro_torch.kernels import byte_shingle as k6
 from repro_torch.kernels import fused_ingest as k1
-from repro_torch.kernels.minhash import minhash_signatures
-from repro_torch.kernels.ngram import ngram_hashes
+from repro_torch.kernels import minhash as k4
+from repro_torch.kernels import ngram as k3
 
 
 @dataclass(frozen=True)
@@ -183,8 +183,8 @@ class DedupPipeline:
             sig, bands, _ = k1.fused_ingest(tokens, lengths, seeds, n=cfg.ngram,
                                          r=cfg.rows_per_band)
         elif cfg.use_kernels:
-            ng, valid = ngram_hashes(tokens, lengths, n=cfg.ngram)
-            sig = minhash_signatures(ng, valid, seeds)
+            ng, valid = k3.ngram_hashes(tokens, lengths, n=cfg.ngram)
+            sig = k4.minhash_signatures(ng, valid, seeds)
             bands = lsh.band_values(sig, cfg.rows_per_band)
         else:
             ng, valid = shingle.ngram_hashes(tokens, lengths, n=cfg.ngram)

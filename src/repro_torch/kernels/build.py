@@ -42,8 +42,11 @@ _EXPORTS = {
     "pair_counts_schedule": ([_I, _P, _P], _I),
     "fused_ingest_schedule": ([_I, _I, _P], _I),
     "byte_token_hashes_schedule": ([_P, _P, _P], _I),
-    "ngram_hashes_launch": ([_P, _P, _I64, _I, _I, _P], _I),
+    "ngram_hashes_launch": ([_P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    "ngram_hashes_schedule": ([_P, _P, _P, _I], _I),
     "minhash_launch": ([_P, _P, _P, _P, _I64, _I, _I, _P], _I),
+    "minhash_schedule": ([_I, _I, _P], _I),
+    "minhash_path": ([_P, _P, _I], _I),
     "band_values_launch": ([_P, _P, _I64, _I, _I, _P], _I),
     "byte_token_hashes_launch": ([_P, _P, _P, _P, _I64, _I, _U32, _P], _I),
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -147,6 +150,21 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's launcher ``name`` with ``args`` and the current
+    stream of ``device`` (a CUDA ``torch.device``); raise on a CUDA error.
+    The device is made current only when it is not already."""
+    import torch
+
+    fn = getattr(library(), name)
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check_launch(code, name.removesuffix("_launch"))
 
 
 def check_launch(code: int, kernel: str) -> None:

@@ -22,24 +22,17 @@
 // The bytes moved (tokens in; signatures, bands and validity out) take a
 // sixth of the operations' time at the memory rate.  The design:
 //
-//   * A lane map sized to M (fused_ingest_schedule).  A lane keeps S seeds
-//     in registers; ceil(M / S) lanes cover the seeds, and the block's
-//     kThreads / lanes groups of lanes share the work of its rows.  At
+//   * The lane map and the walk of minhash_pool_common.cuh, shared with K4
+//     (fused_ingest_schedule reports the map): S seeds a lane in
+//     registers, ceil(M / S) lanes a group, several rows a block sharing
+//     one pool of hashes in shared memory (8 at L = 256, so the block's
+//     fixed costs -- its launch, three barriers, the latency of its first
+//     loads -- are shared), 16-byte broadcast reads of four hashes.  At
 //     M = 100: S = 4, 5 groups of 25 lanes, 125 of 128 lanes (78 % with
 //     one lane a seed).
-//   * Several rows a block (docs: as many as fit kPool positions whole, 8
-//     at L = 256), so the block's fixed costs (its launch, three barriers,
-//     the latency of its first loads) are shared, and one pool of n-gram
-//     hashes in shared memory: each row's hashes in turn, padded to whole
-//     quads with the row's first hash (a repeated value leaves a minimum
-//     unchanged).  Group q walks quads q, q + groups, ... of the pool, so
-//     the groups' work differs by at most a quad whatever the rows'
-//     lengths; a lane's minima leave it by a shared-memory atomic minimum
-//     each time its walk leaves a row.  A row longer than kPool is walked
-//     in rounds of kPool positions, one row a block.
-//   * A lane reads four hashes with one 16-byte broadcast load, which
-//     feeds 4 x S triples.  The rows' tokens reach shared memory by
-//     cp.async, the validity flags leave four to a store.
+//   * K1 fills the pool itself: each row's n-gram hashes in turn, padded to
+//     whole quads with the row's first hash.  The rows' tokens reach shared
+//     memory by cp.async, the validity flags leave four to a store.
 //
 // Bits: every operation is uint32 arithmetic with wraparound, as in the
 // JAX kernel.  The window of position l reads the matrix's own values up
@@ -50,92 +43,21 @@
 #include <cuda_runtime.h>
 
 #include "hash_common.cuh"
+#include "minhash_pool_common.cuh"
 
 namespace {
 
-using repro::hash_u32;
+using minhash_pool::for_cells;
+using minhash_pool::kMaxDocs;
+using minhash_pool::kMinBlocks;
+using minhash_pool::kThreads;
+using minhash_pool::Plan;
 using repro::kLaneSeed0;
 using repro::kLaneSeed1;
-
-constexpr int kThreads = 128;
-// Blocks an SM the kernel is compiled for: at most 51 registers a thread.
-constexpr int kMinBlocks = 10;
-// Positions of a block's pool of n-gram hashes: rows of at most kPool
-// positions share it, several to a block; a longer row is walked in
-// rounds of kPool positions.
-constexpr int kPool = 2048;
-constexpr int kMaxDocs = 32;      // documents a block
-constexpr int kPartWords = 4096;  // the block's running minima, docs x M
-
-// The lane map of one launch; fused_ingest_schedule reports it.
-struct Plan {
-  int S;       // seeds a lane
-  int lanes;   // lanes a group (ceil(M / S), at most kThreads)
-  int passes;  // rounds over the seeds, where ceil(M / S) > kThreads
-  int slices;  // groups of lanes sharing the rows, kThreads / lanes
-  int docs;    // documents a block
-  int tile;    // positions of a row a round holds (a multiple of 4)
-};
-
-// Seeds a lane, in order of preference where two give the same lane use.
-constexpr int kSeedsPerLane[] = {4, 8, 2, 1};
-
-Plan make_plan(int M, int L) {
-  const int quads = (L + 3) / 4;
-  Plan best{};
-  int64_t best_num = -1, best_den = 1;
-  for (const int S : kSeedsPerLane) {
-    Plan p{};
-    p.S = S;
-    const int groups = (M + S - 1) / S;
-    if (groups >= kThreads) {
-      p.lanes = kThreads;
-      p.passes = (groups + kThreads - 1) / kThreads;
-    } else {
-      p.lanes = groups;
-      p.passes = 1;
-    }
-    p.slices = kThreads / p.lanes;
-    // Lane use: M slices / (kThreads S passes).
-    const int64_t num = static_cast<int64_t>(M) * p.slices;
-    const int64_t den = static_cast<int64_t>(S) * p.passes;
-    if (num * best_den > best_num * den) {
-      best = p;
-      best_num = num;
-      best_den = den;
-    }
-  }
-  int docs = kPool / (4 * quads);
-  docs = docs < kMaxDocs ? docs : kMaxDocs;
-  docs = docs < kPartWords / M ? docs : kPartWords / M;
-  best.docs = docs > 1 ? docs : 1;
-  best.tile = 4 * quads < kPool ? 4 * quads : kPool;
-  return best;
-}
 
 size_t smem_bytes(const Plan& p, int M, int n) {
   return sizeof(uint32_t) * static_cast<size_t>(p.docs) *
          (2 * static_cast<size_t>(p.tile) + n - 1 + static_cast<size_t>(M));
-}
-
-__device__ __forceinline__ uint32_t min3(uint32_t a, uint32_t b, uint32_t c) {
-  return min(a, min(b, c));
-}
-
-// f(row, col) for the cells of a rows x cols grid, this thread taking cells
-// threadIdx.x, threadIdx.x + kThreads, ... in row-major order, with one
-// division for the whole walk.
-template <class F>
-__device__ __forceinline__ void for_cells(int rows, int cols, F f) {
-  int row = threadIdx.x / cols, col = threadIdx.x - row * cols;
-  while (row < rows) {
-    f(row, col);
-    col += kThreads;
-    while (col >= cols) {
-      col -= cols;
-      ++row;
-    }
-  }
 }
 
 // A 4-byte copy from device memory to shared memory that the thread does
@@ -165,7 +87,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_ingest_kernel(
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int nv[kMaxDocs];          // valid positions of each document
   __shared__ int qs[kMaxDocs + 1];      // its first quad in the pool
-  const int tile = p.tile, span = p.tile + n - 1, slices = p.slices;
+  const int tile = p.tile, span = p.tile + n - 1;
   uint32_t* pool = smem;
   uint32_t* tok = pool + p.docs * tile;
   uint32_t* part = tok + p.docs * span;
@@ -175,10 +97,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_ingest_kernel(
   // This lane: seed lane g of lane group q.
   const int g = threadIdx.x % p.lanes;
   const int q = threadIdx.x / p.lanes;
-  // The seeds of the first pass, in registers for the whole block.
   uint32_t s0[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) s0[k] = __ldg(seeds + min(g * S + k, M - 1));
+  minhash_pool::first_seeds(seeds, g, M, s0);
 
   if (threadIdx.x < 32) {  // valid positions, and each row's first quad
     int v = 0;
@@ -227,37 +147,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_ingest_kernel(
             repro::ngram_hash(tok + bb * span + (j < nt ? j : 0), n);
     });
     __syncthreads();
-    const uint4* pool4 = reinterpret_cast<const uint4*>(pool);
-    for (int pass = 0; pass < p.passes; ++pass) {
-      const int m0 = (pass * p.lanes + g) * S;
-      if (m0 >= M || q >= slices) break;  // lanes past the last group idle
-      uint32_t s[S];
-#pragma unroll
-      for (int k = 0; k < S; ++k)
-        s[k] = pass == 0 ? s0[k] : __ldg(seeds + min(m0 + k, M - 1));
-      // Lane group q takes quads q, q + slices, ... of the pool; a row's
-      // minima go to part when the walk leaves it.
-      int j = q;
-      for (int bb = 0; bb < ndocs; ++bb) {
-        const int end = p.docs == 1 ? nq_round : qs[bb + 1];
-        if (j >= end) continue;
-        uint32_t mn[S];
-#pragma unroll
-        for (int k = 0; k < S; ++k) mn[k] = 0xFFFFFFFFu;
-#pragma unroll 1
-        for (; j < end; j += slices) {
-          const uint4 v = pool4[j];
-#pragma unroll
-          for (int k = 0; k < S; ++k) {
-            mn[k] = min3(mn[k], hash_u32(v.x, s[k]), hash_u32(v.y, s[k]));
-            mn[k] = min3(mn[k], hash_u32(v.z, s[k]), hash_u32(v.w, s[k]));
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < S; ++k)
-          if (m0 + k < M) atomicMin(part + bb * M + m0 + k, mn[k]);
-      }
-    }
+    minhash_pool::walk_pool(p, g, q, s0, seeds, M, pool, ndocs, [&](int bb) {
+      return p.docs == 1 ? nq_round : qs[bb + 1];
+    }, part);
     __syncthreads();
   }
 
@@ -286,26 +178,30 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_ingest_kernel(
   }
 }
 
-template <int S>
-cudaError_t launch(const Plan& p, const void* tokens, const void* lengths,
-                   const void* seeds, void* sig, void* bands, void* valid,
-                   int64_t D, int L, int M, int n, int r, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p, M, n);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ingest_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+struct Launch {
+  template <int S>
+  static cudaError_t run(const Plan& p, const void* tokens, const void* lengths,
+                         const void* seeds, void* sig, void* bands, void* valid,
+                         int64_t D, int L, int M, int n, int r,
+                         cudaStream_t stream) {
+    const size_t smem = smem_bytes(p, M, n);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fused_ingest_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    const int64_t grid = (D + p.docs - 1) / p.docs;
+    fused_ingest_kernel<S><<<static_cast<unsigned>(grid), kThreads, smem,
+                             stream>>>(
+        static_cast<const uint32_t*>(tokens),
+        static_cast<const int32_t*>(lengths),
+        static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(sig),
+        static_cast<uint32_t*>(bands), static_cast<bool*>(valid), D, L, M, n,
+        r, p);
+    return cudaGetLastError();
   }
-  const int64_t grid = (D + p.docs - 1) / p.docs;
-  fused_ingest_kernel<S><<<static_cast<unsigned>(grid), kThreads, smem,
-                           stream>>>(
-      static_cast<const uint32_t*>(tokens), static_cast<const int32_t*>(lengths),
-      static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(sig),
-      static_cast<uint32_t*>(bands), static_cast<bool*>(valid), D, L, M, n, r,
-      p);
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
@@ -313,10 +209,7 @@ cudaError_t launch(const Plan& p, const void* tokens, const void* lengths,
 // out = {threads, S, lanes, passes, slices, docs, tile}.
 extern "C" int fused_ingest_schedule(int M, int L, int32_t* out) {
   if (M <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = make_plan(M, L);
-  const int32_t v[] = {kThreads, p.S, p.lanes, p.passes, p.slices, p.docs,
-                       p.tile};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  minhash_pool::write_plan(minhash_pool::make_plan(M, L), out);
   return 0;
 }
 
@@ -327,15 +220,7 @@ extern "C" int fused_ingest_launch(const void* tokens, const void* lengths,
   if (D <= 0 || D > 0x7FFFFFFF || L <= 0 || M <= 0 || n <= 0 || r <= 0 ||
       M % r != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = make_plan(M, L);
-  const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (p.S) {
-    case 1: e = launch<1>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
-    case 2: e = launch<2>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
-    case 4: e = launch<4>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
-    case 8: e = launch<8>(p, tokens, lengths, seeds, sig, bands, valid, D, L, M, n, r, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(minhash_pool::dispatch<Launch>(
+      minhash_pool::make_plan(M, L), tokens, lengths, seeds, sig, bands, valid,
+      D, L, M, n, r, static_cast<cudaStream_t>(stream)));
 }

@@ -44,18 +44,6 @@ def schedule(M: int, a: torch.Tensor, b: torch.Tensor) -> tuple[int, str]:
     return abs(s), "vector" if s > 0 else "scalar"
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch ``name`` on ``device``'s current stream; raise on a CUDA
-    error.  The device is made current only when it is not already."""
-    fn = getattr(build.library(), name)
-    if device.index == torch.cuda.current_device():
-        code = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            code = fn(*args, torch.cuda.current_stream().cuda_stream)
-    build.check_launch(code, name.removesuffix("_launch"))
-
-
 def pair_counts_plain(sig: torch.Tensor, a_idx: torch.Tensor,
                       b_idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: gather both rows, compare, sum."""
@@ -93,8 +81,8 @@ def pair_counts(sig: torch.Tensor, a_idx: torch.Tensor,
     counts = torch.empty((P,), dtype=torch.int32, device=sig.device)
     if P == 0:
         return counts
-    _launch("pair_counts_launch", sig.device, sig.data_ptr(), D, M,
-            a_idx.data_ptr(), b_idx.data_ptr(), P, counts.data_ptr())
+    build.launch("pair_counts_launch", sig.device, sig.data_ptr(), D, M,
+                 a_idx.data_ptr(), b_idx.data_ptr(), P, counts.data_ptr())
     launches += 1
     return counts
 
@@ -134,7 +122,7 @@ def _check_lanes(P: int, device, **lanes) -> None:
 
 def _launch_masked(fn_name: str, device, *args) -> None:
     global masked_launches
-    _launch(fn_name, device, *args)
+    build.launch(fn_name, device, *args)
     masked_launches += 1
 
 

@@ -150,6 +150,10 @@ def test_pipeline_with_kernels_matches_plain_path(cuda):
     (64, 5, 8),       # L < n
     (20, 700, 3),     # several tiles of 256
     (3, 2500, 8),
+    (500, 4, 1),      # n = 1; one quad a row
+    (40, 4, 13),      # L < n on the vector path
+    (30, 257, 13),    # L % 4 != 0: the scalar path
+    (16384, 256, 8),  # the main path's matrix: tiles strided over the grid
 ])
 def test_ngram_kernel_matches_plain(cuda, D, L, n):
     tokens, lengths, _ = _packed(D, L, 1, seed=L + n, device=cuda)
@@ -157,8 +161,41 @@ def test_ngram_kernel_matches_plain(cuda, D, L, n):
     got = k3.ngram_hashes(tokens, lengths, n=n)
     torch.cuda.synchronize()
     assert k3.launches == 1
+    assert k3.schedule(tokens, *got) == ("vector" if L % 4 == 0 else "scalar")
     for g, w in zip(got, k3.ngram_hashes_plain(tokens, lengths, n=n)):
         assert torch.equal(g, w)
+    assert got[1].dtype == torch.bool and bool(got[1].any())
+
+
+@pytest.mark.parametrize("D,L,n", [(300, 40, 8), (41, 256, 13)])
+def test_ngram_kernel_scalar_path_on_a_misaligned_view(cuda, D, L, n):
+    """A token view one word into its storage is contiguous but not
+    16-byte aligned: the kernel takes the scalar path, says so, and
+    agrees, hashes and validity."""
+    tokens, lengths, _ = _packed(D, L, 1, seed=L + n + 1, device=cuda)
+    store = torch.zeros(D * L + 1, dtype=torch.int32, device=cuda)
+    view = store[1:].view(D, L)
+    view.copy_(tokens)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = k3.ngram_hashes(view, lengths, n=n)
+    torch.cuda.synchronize()
+    assert k3.schedule(view, *got) == "scalar"
+    for g, w in zip(got, k3.ngram_hashes_plain(view, lengths, n=n)):
+        assert torch.equal(g, w)
+
+
+def _masks(D, L, seed):
+    """Row masks as tests/test_torch_staged_schedule.py's MASKS: random
+    0.8 everywhere, then none, all, 1-in-64, a prefix and a single
+    position in rows 0-4."""
+    rng = np.random.RandomState(seed)
+    valid = rng.rand(D, L) < 0.8
+    valid[0] = False  # no valid position: U32_MAX
+    valid[1] = True
+    valid[2] = np.arange(L) % 64 == 5 % L
+    valid[3] = np.arange(L) < rng.randint(1, L + 1)
+    valid[4] = np.arange(L) == rng.randint(0, L)
+    return valid
 
 
 @pytest.mark.parametrize("D,L,M", [
@@ -166,19 +203,62 @@ def test_ngram_kernel_matches_plain(cuda, D, L, n):
     (30, 200, 1),
     (30, 200, 130),    # more seeds than threads
     (5, 2500, 260),    # several L tiles
+    (1000, 256, 100),  # the main path's map: 8 rows a block
+    (40, 256, 128),
+    (13, 129, 260),    # L % 4 != 0: the scalar path
+    (7, 64, 2050),     # seed lanes in passes
+    (6, 4100, 100),    # rows over three rounds of the pool
+    (301, 4, 7),       # 32 rows a block
 ])
 def test_minhash_kernel_matches_plain(cuda, D, L, M):
     tokens, _, seeds = _packed(D, L, M, seed=D + L + M, device=cuda)
-    rng = np.random.RandomState(L)
-    valid = torch.from_numpy(rng.rand(D, L) < 0.8).to(cuda)
-    valid[0] = False  # no valid position: U32_MAX
-    valid[1] = True
+    valid = torch.from_numpy(_masks(D, L, seed=L)).to(cuda)
     k4.launches = 0
     got = k4.minhash_signatures(tokens, valid, seeds)
     torch.cuda.synchronize()
     assert k4.launches == 1
+    assert k4.path(tokens, valid) == ("vector" if L % 4 == 0 else "scalar")
     assert torch.equal(got, k4.minhash_signatures_plain(tokens, valid, seeds))
     assert bool((got[0] == -1).all())
+
+
+def test_minhash_kernel_scalar_path_on_a_misaligned_view(cuda):
+    D, L, M = 40, 256, 100
+    tokens, _, seeds = _packed(D, L, M, seed=3, device=cuda)
+    valid = torch.from_numpy(_masks(D, L, seed=4)).to(cuda)
+    store = torch.zeros(D * L + 2, dtype=torch.int32, device=cuda)
+    view = store[2:].view(D, L)
+    view.copy_(tokens)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    got = k4.minhash_signatures(view, valid, seeds)
+    torch.cuda.synchronize()
+    assert k4.path(view, valid) == "scalar"
+    assert torch.equal(got, k4.minhash_signatures_plain(view, valid, seeds))
+
+
+def test_staged_schedules_match_the_python_side(cuda):
+    # K3's paths and K4's map and paths as the CPU emulations walk them
+    # (tests/test_torch_staged_schedule.py).
+    from test_torch_staged_schedule import k3_path, k4_path
+    from test_torch_ingest_schedule import lane_map
+
+    for M in list(range(1, 300)) + [1000, 2050, 5000]:
+        for L in (1, 3, 4, 5, 129, 256, 1024, 2048, 2049, 2500, 4100):
+            assert k4.schedule(M, L) == lane_map(M, L), (M, L)
+    tok = torch.zeros(4 * 64 + 4, dtype=torch.int32, device=cuda)
+    flags = torch.zeros(4 * 64 + 4, dtype=torch.bool, device=cuda)
+    for L in (1, 4, 6, 64):
+        for a, b, c in ((0, 0, 0), (1, 0, 0), (0, 2, 0), (0, 0, 1), (0, 0, 4)):
+            t, h, v = tok[a:a + L], tok[b:b + L], flags[c:c + L]
+            t, h, v = t.view(1, L), h.view(1, L), v.view(1, L)
+            assert k3.schedule(t, h, v) == k3_path(
+                L, t.data_ptr(), h.data_ptr(), v.data_ptr()), (L, a, b, c)
+            assert k4.path(t, v) == k4_path(L, t.data_ptr(), v.data_ptr())
+    assert k3.schedule(tok[:64].view(4, 16), tok[4:68].view(4, 16),
+                       flags[4:68].view(4, 16)) == "vector"
+    assert k3.schedule(tok[:64].view(4, 16), tok[1:65].view(4, 16),
+                       flags[:64].view(4, 16)) == "scalar"
+    assert k4.path(tok[:64].view(4, 16), flags[:64].view(4, 16)) == "vector"
 
 
 @pytest.mark.parametrize("D,M,r", [(1000, 100, 2), (77, 24, 8), (5, 7, 1),

@@ -1,0 +1,25 @@
+"""Each kernel module of the port imports first in a fresh interpreter.
+
+``repro_torch.core.pipeline`` imports the kernel modules, and a kernel
+module imports ``repro_torch.core``, so the pipeline must take modules,
+not their functions: a function asked for while its module is half
+initialised raises ``ImportError``.  One subprocess a module.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.mark.parametrize("module", ["minhash", "ngram", "fused_ingest",
+                                    "byte_shingle"])
+def test_kernel_module_imports_first_in_a_fresh_interpreter(module):
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import repro_torch.kernels.{module}"],
+        env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -43,7 +43,7 @@ LANE_SEEDS = (0x2545F491, 0x9E3779B9)
 FNV_OFFSET, FNV_PRIME = 2166136261, 16777619
 CHUNK = 16  # K6's positions a thread
 
-# Constants of csrc/fused_ingest.cu's lane map.
+# Constants of K1's lane map (csrc/minhash_pool_common.cuh).
 THREADS = 128
 POOL = 2048  # positions of a block's pool of n-gram hashes
 MAX_DOCS = 32
@@ -53,10 +53,11 @@ SEEDS_PER_LANE = (4, 8, 2, 1)  # in order of preference at equal lane use
 
 def lane_map(M: int, L: int) -> dict:
     """K1's lane map for rows of L tokens and M seeds, as ``make_plan`` in
-    csrc/fused_ingest.cu chooses it: the S of ``SEEDS_PER_LANE`` whose map
-    gives the most lane use, M slices / (THREADS S passes), the first on
-    ties; as many documents a block as fit the pool whole, and rounds of
-    ``POOL`` positions for longer rows.  Keyed as ``fused_ingest.schedule``."""
+    csrc/minhash_pool_common.cuh chooses it: the S of ``SEEDS_PER_LANE``
+    whose map gives the most lane use, M slices / (THREADS S passes), the
+    first on ties; as many documents a block as fit the pool whole, and
+    rounds of ``POOL`` positions for longer rows.  Keyed as
+    ``fused_ingest.schedule``."""
     quads = -(-L // 4)
     best, best_use = None, None
     for S in SEEDS_PER_LANE:
@@ -218,7 +219,10 @@ def test_k1_lane_map_matches_reference(M, L):
 
 
 def test_k1_lane_map_and_constants_match_the_kernel_source():
-    text = (build.CSRC / "fused_ingest.cu").read_text()
+    # K1's lane map and min loop live in the header it shares with K4.
+    assert '#include "minhash_pool_common.cuh"' in \
+        (build.CSRC / "fused_ingest.cu").read_text()
+    text = (build.CSRC / "minhash_pool_common.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))

@@ -101,16 +101,18 @@ def test_staged_kernel_config_maps_and_runs_k3_k4(notes, monkeypatch):
     assert pipe.config.use_kernels and not pipe.config.fused_ingest
     calls = []
 
-    def spy(name):
-        fn = getattr(pipeline_mod, name)
+    def spy(module, name):
+        fn = getattr(module, name)
 
         def wrapped(*args, **kwargs):
             calls.append(name)
             return fn(*args, **kwargs)
-        monkeypatch.setattr(pipeline_mod, name, wrapped)
+        monkeypatch.setattr(module, name, wrapped)
 
-    spy("ngram_hashes")
-    spy("minhash_signatures")
+    # The pipeline calls the kernel modules' functions (k3, k4), so the spy
+    # sits on those modules' attributes.
+    spy(pipeline_mod.k3, "ngram_hashes")
+    spy(pipeline_mod.k4, "minhash_signatures")
     sig = pipe.compute_signatures(pipe.tokenize(notes))
     assert calls == ["ngram_hashes", "minhash_signatures"]
     assert sig.shape == (len(notes), 100)
