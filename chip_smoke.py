@@ -37,6 +37,19 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   ``kernels.ops`` entry point K3 -> K4 -> K5 (band fold) on phase A's
   matrix, each kernel against its plain version, K3's path and K4's
   lane map and path reported, K3 and K4 also timed from a CUDA graph.
+* Phase H, the session layer and the read path on phase A's notes: a
+  host ``DedupSession`` with phase A's config over 4 chunks (H1: K1 once
+  a chunk, and K2) and with phase A2's (H2: K6, compaction, K1, K2),
+  each holding phase A's (A2's) signatures, partition, keep mask and
+  every shared pair's similarity, and every pair's similarity against
+  K2's plain counts / M; a ``DedupQueryService`` with the ``kernel``
+  backend over each session (H3: every 16th note and 64 novel ones in
+  microbatches of 64, through ``query`` and ``query_bytes``) equal to
+  its ``numpy`` twin, every ingested note answering with similarity 1.0
+  and its own root, and the probe's dict walk timed against a device
+  searchsorted probe, index build included, on H3's traffic, on every
+  ingested note and on the CLI's 65 queries; and the dedup CLI,
+  ``python -m repro_torch.launch.dedup``, run as a user runs it (H4).
 * Phase S, the sharded step (``core.dist_lsh``) on the card over an
   NCCL process group of one rank, on phase A's packed matrix: stage 2
   on the host merge with K2, then on the device with K7 (masked pair
@@ -84,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -163,8 +177,15 @@ def main() -> int:
                                       PHASE_A_DUPS, seed=1)
     emit(corpus={"notes": len(notes), "seconds": time.perf_counter() - t0})
     ctx, k1_line, k2_line = phase_a(torch, clock_hz, notes)
-    k6_line = phase_a2(torch, clock_hz, notes)
+    k6_line = phase_a2(torch, clock_hz, notes, ctx)
     k3_line, k4_line, k5_line = phase_a3(torch, clock_hz, notes, ctx)
+    t0 = time.perf_counter()
+    h_launches = phase_h(torch, notes, ctx)
+    emit(phase_h={"seconds": time.perf_counter() - t0,
+                  "launches": h_launches})
+    for line in (k1_line, k2_line, k6_line):
+        line["launches_phase_h"] = {path: counts[line["name"]]
+                                    for path, counts in h_launches.items()}
     import torch.distributed as dist
 
     # One NCCL group of one rank: the sharded step's collectives run on
@@ -830,7 +851,7 @@ def phase_a(torch, clock_hz: float, notes: list[str]):
 
 # -- phase A2: byte ingest ------------------------------------------------------
 
-def phase_a2(torch, clock_hz: float, notes: list[str]) -> dict:
+def phase_a2(torch, clock_hz: float, notes: list[str], ctx: dict) -> dict:
     import numpy as np
     import torch.nn.functional as F
 
@@ -917,6 +938,7 @@ def phase_a2(torch, clock_hz: float, notes: list[str]) -> dict:
           "byte path labels and keep mask == plain clustering")
     check(acc.pairs == res.pairs, "byte path (a, b, sim) list == plain")
 
+    ctx["byte_res"] = res
     t = res.timings
     stages = {"pack (byte matrix)": t["pack_s"], "upload": t["upload_s"],
               "ingest (K6, compaction, K1)": t["ingest_s"]}
@@ -1105,6 +1127,343 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
                "ms": times["k5"], "plain_ms": times["k5_plain"],
                "shape": {"D": D, "M": M, "r": r}, **k5_bound(D, M, r, clock_hz)}
     return k3_line, k4_line, k5_line
+
+
+# -- phase H: the host session, the read path and the dedup CLI ------------------
+
+H_CHUNKS, H_QUERY_STRIDE, H_NOVEL, H_MICROBATCH = 4, 16, 64, 64
+
+
+def canonical(labels):
+    """Cluster labels as the first doc of each cluster: the partition,
+    whatever doc union by rank made the root."""
+    first = {}
+    return [first.setdefault(int(r), i) for i, r in enumerate(labels)]
+
+
+def session_run(torch, cfg, notes, want, device: str, counters: dict) -> tuple:
+    """One ``DedupSession.ingest_stream`` over ``H_CHUNKS`` chunks, held
+    against the one-shot ``want`` (a ``DedupResult`` of the same config)
+    and, pair by pair, against K2's plain counts / M.
+
+    A chunked session and a one-shot run evaluate different root pairs
+    (the union order differs) and may pick other roots, so what must
+    agree is what the reference's session contract pins: the partition,
+    the keep mask and the similarity of every pair both evaluate.
+    ``counters`` maps names to kernel modules; their launches are set to
+    0 before the run and returned after it."""
+    import numpy as np
+
+    from repro_torch.core.session import DedupSession
+    from repro_torch.kernels import sigjaccard as k2
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    sess = DedupSession(cfg, device=device)
+    size = -(-len(notes) // H_CHUNKS)
+    chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
+    steps = []
+    t0 = time.perf_counter()
+    for snap in sess.ingest_stream(chunks):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        t = sess.stage_timings
+        steps.append({"seconds": now - t0, "merge_s": t["merge_s"],
+                      "cross_step_edges": t["cross_step_edges"],
+                      "cross_step_s": t["cross_step_s"],
+                      "pairs_evaluated": snap.stats.pairs_evaluated})
+        t0 = now
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    check(snap.n_docs == len(notes), "session covers every note")
+    check(np.array_equal(sess.signatures, want.signatures),
+          "session signatures == one-shot signatures")
+    check(canonical(snap.labels) == canonical(want.labels),
+          "session partition == one-shot partition")
+    keep = np.zeros(len(notes), dtype=bool)
+    keep[np.unique(snap.labels, return_index=True)[1]] = True
+    check(np.array_equal(keep, want.keep_mask),
+          "session keep mask == one-shot keep mask")
+    sims = {(a, b): s for a, b, s in want.pairs}
+    shared = [(s, sims[(a, b)]) for a, b, s in snap.pairs if (a, b) in sims]
+    check(len(shared) > 0 and all(x == y for x, y in shared),
+          "sims of pairs both evaluate are equal")
+    # Every session pair against K2's plain counts / M on the same rows.
+    pairs = np.array([(a, b) for a, b, _ in snap.pairs], dtype=np.int64)
+    got = np.array([s for _, _, s in snap.pairs], dtype=np.float32)
+    sig = torch.from_numpy(sess.signatures.view(np.int32)).to(device)
+    M = sig.shape[1]
+    for s in range(0, len(pairs), 1 << 20):
+        a = torch.from_numpy(pairs[s : s + (1 << 20), 0]).to(device)
+        b = torch.from_numpy(pairs[s : s + (1 << 20), 1]).to(device)
+        want_s = (k2.pair_counts_plain(sig, a, b).cpu().numpy()
+                  .astype(np.float32) / np.float32(M))
+        check(np.array_equal(got[s : s + len(want_s)], want_s),
+              "session pair sims == K2 plain counts / M")
+    summary = {
+        "chunks": len(chunks), "steps": steps,
+        "ingest_s": sum(x["seconds"] for x in steps),
+        "pairs_evaluated": snap.stats.pairs_evaluated,
+        "one_shot_pairs_evaluated": want.stats.pairs_evaluated,
+        "shared_pairs": len(shared),
+        "labels_equal_as_ids": bool(np.array_equal(snap.labels, want.labels)),
+        "verify_batches": snap.stats.verify_batches,
+        "launches": launches}
+    return sess, snap, summary
+
+
+def serve_queries(torch, svc, queries: list[str], device: str,
+                  by_bytes: bool = False) -> tuple[list, dict]:
+    """``queries`` through ``svc`` in microbatches of ``H_MICROBATCH``
+    (``submit`` and ``step``, or ``query_bytes``), each timed on the host
+    clock (its results are on the host when it returns)."""
+    import numpy as np
+
+    results, lat = [], []
+    t_all = time.perf_counter()
+    for s in range(0, len(queries), H_MICROBATCH):
+        batch = queries[s : s + H_MICROBATCH]
+        t0 = time.perf_counter()
+        if by_bytes:
+            results += svc.query_bytes(batch)
+        else:
+            rids = [svc.submit(t) for t in batch]
+            done = {r.rid: r.result for r in svc.run_until_drained()}
+            results += [done[r] for r in rids]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    total = time.perf_counter() - t_all
+    return results, {"microbatches": len(lat),
+                     "median_microbatch_ms": float(np.median(lat)) * 1e3,
+                     "first_microbatch_ms": lat[0] * 1e3,
+                     "max_microbatch_ms": max(lat) * 1e3,
+                     "queries_per_s": len(queries) / total}
+
+
+def searchsorted_index(torch, view, device: str) -> tuple:
+    """The TPU reference's probe index, kept here only to time it against
+    the port's dict walk (``query.probe_candidates``): per band the
+    sorted ``hi << 32 | lo`` keys of the view's bucket map on the card,
+    padded with the int64 maximum, and each band's key count.  A
+    published view needs it built anew."""
+    import numpy as np
+
+    per_band = [np.sort(band_key64(list(m.keys()))) for m in view.band_maps]
+    width = max(1, max(len(k) for k in per_band))
+    keys = np.full((len(per_band), width), np.iinfo(np.int64).max, np.int64)
+    for j, k in enumerate(per_band):
+        keys[j, : len(k)] = k
+    return (torch.from_numpy(keys).to(device),
+            torch.tensor([len(k) for k in per_band], device=device))
+
+
+def band_key64(hi_lo):
+    """(..., 2) uint32 band lanes -> one int64 key each (``hi << 32 | lo``,
+    wrapping: a bijection, so equal keys are equal bands)."""
+    import numpy as np
+
+    a = np.asarray(hi_lo, dtype=np.int64).reshape(-1, 2)
+    return (a[:, 0] << 32) | a[:, 1]
+
+
+def searchsorted_probe(torch, index, view, bands) -> list:
+    """Candidates of (Q, b, 2) ``bands`` through ``searchsorted_index``:
+    one ``searchsorted`` of the batch's keys on the card, then the host
+    dicts read for the hits alone (a hit needs ``idx < count``, so a key
+    equal to the padding is no hit)."""
+    import numpy as np
+
+    keys, counts = index
+    q, b = bands.shape[:2]
+    qk = torch.from_numpy(np.ascontiguousarray(
+        band_key64(bands).reshape(q, b).T)).to(keys.device)
+    idx = torch.searchsorted(keys, qk)
+    found = torch.gather(keys, 1, idx.clamp(max=keys.shape[1] - 1)) == qk
+    hits = (found & (idx < counts[:, None])).T.cpu().numpy()
+    cands = [set() for _ in range(q)]
+    for j, m in enumerate(view.band_maps):
+        col = bands[:, j, :].tolist()
+        for i in np.flatnonzero(hits[:, j]).tolist():
+            cands[i].update(m[tuple(col[i])])
+    return [np.array(sorted(c), dtype=np.int64) for c in cands]
+
+
+def probe_crossover(torch, view, bands, batch: int, device: str) -> dict:
+    """The port's dict-walk probe against the searchsorted probe, index
+    build included, over ``bands`` in batches of ``batch``.  Each batch
+    must give the same candidates both ways."""
+    import numpy as np
+
+    from repro_torch.core import query
+
+    walk, probe = [], []
+    t0 = time.perf_counter()
+    index = searchsorted_index(torch, view, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for s in range(0, len(bands), batch):
+        part = bands[s : s + batch]
+        t0 = time.perf_counter()
+        want = query.probe_candidates(view, part)[0]
+        t1 = time.perf_counter()
+        got = searchsorted_probe(torch, index, view, part)
+        probe.append(time.perf_counter() - t1)
+        walk.append(t1 - t0)
+        check(len(got) == len(want)
+              and all(np.array_equal(x, y) for x, y in zip(got, want)),
+              "searchsorted probe == dict walk")
+    return {"queries": len(bands), "batch": batch, "batches": len(walk),
+            "dict_walk_ms": sum(walk) * 1e3,
+            "dict_walk_median_batch_ms": float(np.median(walk)) * 1e3,
+            "searchsorted_build_ms": build_s * 1e3,
+            "searchsorted_probe_ms": sum(probe) * 1e3,
+            "searchsorted_median_batch_ms": float(np.median(probe)) * 1e3,
+            "searchsorted_total_ms": (build_s + sum(probe)) * 1e3}
+
+
+def cli_session(torch, device: str):
+    """The warm session and the 65 queries of H4's CLI run (``--notes
+    2000 --dups 1000 --steps 4 --fused-ingest --estimate --backend
+    kernel --query 64``), built in process.  ``verify_batch`` is
+    ``band``: the probe reads only the band maps, which it leaves as
+    they are."""
+    import numpy as np
+
+    from repro_torch.core import DedupConfig, DedupSession
+    from repro_torch.data import inject_near_duplicates, make_i2b2_like
+
+    notes, _ = inject_near_duplicates(make_i2b2_like(2000), 1000)
+    cfg = DedupConfig(fused_ingest=True, exact_verification=False,
+                      verify_backend="kernel", verify_batch="band")
+    sess = DedupSession(cfg, device=device)
+    bounds = np.linspace(0, len(notes), 5).astype(int)
+    for a, b in zip(bounds, bounds[1:]):
+        sess.ingest(notes[a:b])
+    return sess, notes[:64] + ["entirely unrelated query text " * 12]
+
+
+def query_bands(sess, texts: list[str]):
+    """(Q, b, 2) uint32 band values of ``texts`` through the session's
+    own pipeline, as ``DedupQueryService.query`` computes them."""
+    from repro_torch.core import shingle
+
+    pipe = sess._impl.pipe
+    toks = pipe.tokenize(texts)
+    pad = shingle.pow2_bucket(max(len(t) for t in toks))
+    return pipe.compute_arrays(toks, pad_len=pad)[1]
+
+
+def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
+    """The host ``DedupSession`` over phase A's notes in ``H_CHUNKS``
+    chunks (H1: fused ingest, K1 and K2; H2: byte ingest, K6, compaction,
+    K1 and K2), the read path over those sessions (H3:
+    ``DedupQueryService`` with the ``kernel`` backend against its
+    ``numpy`` twin, ``query`` and ``query_bytes``; the probe's dict walk
+    against a device searchsorted probe), and the dedup CLI (H4).
+    Returns each path's kernel launches."""
+    from repro_torch.core.pipeline import DedupConfig
+    from repro_torch.data import make_i2b2_like
+    from repro_torch.kernels import byte_shingle as k6
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+    from repro_torch.serving import DedupQueryService
+
+    counters = {"fused_ingest": (k1, "launches"),
+                "pair_counts": (k2, "launches"),
+                "byte_token_hashes": (k6, "launches")}
+    launches = {}
+
+    # H1: phase A's config, 4 chunks.
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel",
+                      verify_batch="band")
+    sess, snap, h1 = session_run(torch, cfg, notes, ctx["res"], device,
+                                 counters)
+    launches["h1_session"] = h1["launches"]
+    check(h1["launches"]["fused_ingest"] == H_CHUNKS,
+          "K1 launched once a chunk in the session")
+    check(h1["launches"]["pair_counts"] > 0, "K2 launched in the session")
+    emit(phase_h1=h1)
+
+    # H2: phase A2's config, 4 chunks.
+    byte_cfg = DedupConfig(byte_ingest=True, use_kernels=True,
+                           exact_verification=False, verify_batch="band")
+    byte_sess, _, h2 = session_run(torch, byte_cfg, notes, ctx["byte_res"],
+                                   device, counters)
+    launches["h2_byte_session"] = h2["launches"]
+    check(h2["launches"]["byte_token_hashes"] == H_CHUNKS
+          and h2["launches"]["fused_ingest"] == H_CHUNKS
+          and h2["launches"]["pair_counts"] > 0,
+          "K6 and K1 launched once a chunk, and K2, in the byte session")
+    emit(phase_h2=h2)
+
+    # H3: the read path, kernel backend against its numpy twin.
+    ingested = list(range(0, len(notes), H_QUERY_STRIDE))
+    queries = [notes[i] for i in ingested] + make_i2b2_like(H_NOVEL, seed=7)
+    h3 = {"queries": len(queries), "microbatch": H_MICROBATCH}
+    for name, s, by_bytes in (("query", sess, False),
+                              ("query_bytes", byte_sess, True)):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        got, timing = serve_queries(
+            torch, DedupQueryService(s, backend="kernel",
+                                     max_batch=H_MICROBATCH),
+            queries, device, by_bytes)
+        run_launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
+        want, twin = serve_queries(
+            torch, DedupQueryService(s, backend="numpy",
+                                     max_batch=H_MICROBATCH),
+            queries, device, by_bytes)
+        check(got == want, f"{name}: kernel service == numpy service")
+        labels = s.snapshot().labels
+        check(all(r.best_sim == 1.0 and r.cluster_root == int(labels[i])
+                  for i, r in zip(ingested, got)),
+              f"{name}: every ingested note answers sim 1.0, its own root")
+        check(run_launches["fused_ingest"] == timing["microbatches"]
+              and run_launches["pair_counts"] > 0,
+              f"{name}: K1 once a microbatch, and K2, on the read path")
+        if by_bytes:
+            check(run_launches["byte_token_hashes"] == timing["microbatches"],
+                  "query_bytes: K6 once a microbatch")
+        launches[f"h3_{name}"] = run_launches
+        h3[name] = {**timing, "launches": run_launches,
+                    "numpy_twin": twin,
+                    "duplicates": sum(r.is_duplicate for r in got),
+                    "candidates": sum(r.n_candidates for r in got)}
+    # The probe: the port's dict walk against the reference's device
+    # searchsorted design, index build included, on H3's traffic (in its
+    # microbatches and as one batch), on every ingested note at once,
+    # and on the CLI's 65 queries against the CLI's session.
+    view, q_bands = sess.view(), query_bands(sess, queries)
+    h3["probe"] = {
+        "h3_microbatches": probe_crossover(torch, view, q_bands,
+                                           H_MICROBATCH, device),
+        "h3_one_batch": probe_crossover(torch, view, q_bands, len(q_bands),
+                                        device),
+        "all_ingested": probe_crossover(torch, view, ctx["res"].bands,
+                                        len(notes), device)}
+    cli, cli_queries = cli_session(torch, device)
+    h3["probe"]["cli"] = probe_crossover(
+        torch, cli.view(), query_bands(cli, cli_queries), len(cli_queries),
+        device)
+    emit(phase_h3=h3)
+
+    # H4: the dedup CLI, as a user runs it.
+    argv = [sys.executable, "-m", "repro_torch.launch.dedup", "--notes",
+            "2000", "--dups", "1000", "--steps", "4", "--fused-ingest",
+            "--estimate", "--backend", "kernel", "--query", "64",
+            "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=600)
+    check(proc.returncode == 0, f"dedup CLI exits 0: {proc.stderr[-2000:]}")
+    emit(phase_h4={"argv": argv[1:], "seconds": time.perf_counter() - t0,
+                   "report": proc.stdout.splitlines()})
+    return launches
 
 
 # -- phase S: the sharded step ----------------------------------------------------

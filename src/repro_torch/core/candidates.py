@@ -11,7 +11,8 @@ sort-based method, §3.6 method 2).  ``BandMatrixSource`` reads a dense
 in-memory ``(D, b, 2)`` band matrix, the ``DedupPipeline`` path.
 ``ShardedEdgeSource`` reads the prescreened edge buffers of the sharded
 step (``dist_lsh``): each surviving edge is a two-member run, so the
-sharded path's host merge drives the same engine.  Doc ids are int64
+sharded path's host merge drives the same engine; ``EdgeStreamSource``
+reads those buffers one band group at a time.  Doc ids are int64
 throughout, so global ids of chunked corpora past 2**31 cannot wrap.
 """
 from __future__ import annotations
@@ -191,6 +192,52 @@ class ShardedEdgeSource:
             yield BandRuns(band_id=i, sorted_vals=vals,
                            sorted_docs=e.reshape(-1),
                            run_starts=starts, run_ends=starts + 2)
+
+
+class EdgeStreamSource:
+    """``ShardedEdgeSource`` over per-group buffers, one group at a time.
+
+    The band-group streamed ``dist_lsh`` step emits one ``(edges,
+    mask)`` buffer per band group.  This source brings group g's buffer
+    to the host only when the engine reaches it, so the host merge of
+    group g can overlap the device work still queued for later groups.
+
+    ``groups`` is an iterable of ``(edges, mask)`` (tensors or arrays;
+    mask may be None).  ``edge_offset`` is subtracted from edge ids
+    before the range filter (the ``doc_id_base`` shift of chunked
+    corpora).  ``on_group(g, edges, mask)`` runs right after group g is
+    brought over and before its edges are fed.
+    """
+
+    def __init__(self, groups, *, num_docs: int, num_shards: int = 1,
+                 edge_offset: int = 0, on_group=None):
+        self._groups = groups
+        self._num_docs = int(num_docs)
+        self._num_shards = int(num_shards)
+        self._edge_offset = int(edge_offset)
+        self._on_group = on_group
+        self.num_edges = 0
+        self.groups_consumed = 0
+
+    @property
+    def num_docs(self) -> int:
+        return self._num_docs
+
+    @property
+    def num_bands(self) -> int:
+        """BandRuns yielded so far (groups consumed x device shards)."""
+        return self.groups_consumed * self._num_shards
+
+    def iter_bands(self) -> Iterator[BandRuns]:
+        for g, (edges, mask) in enumerate(self._groups):
+            src = ShardedEdgeSource.from_device_buffers(
+                edges, mask, num_docs=self._num_docs,
+                num_shards=self._num_shards, edge_offset=self._edge_offset)
+            if self._on_group is not None:
+                self._on_group(g, edges, mask)
+            self.num_edges += src.num_edges
+            self.groups_consumed += 1
+            yield from src.iter_bands()
 
 
 def host_u32(x) -> np.ndarray:

@@ -4,7 +4,9 @@ The (D, M) signature matrix is cut into b bands of r rows, and each
 band's r values fold into one value per document, kept as two
 independent 32-bit lanes (about 64-bit discrimination, as the paper's
 64-bit band values).  Documents sharing a band value in at least one
-band are candidates: P(candidate) = 1 - (1 - s^r)^b.
+band are candidates: P(candidate) = 1 - (1 - s^r)^b.  ``sort_band``,
+``run_heads`` and ``star_edges`` are the sort-based candidate runs of
+one band as tensor functions.
 """
 from __future__ import annotations
 
@@ -16,6 +18,40 @@ from repro_torch.core.hashing import as_u32, hash_u32, to_bits
 
 # Per-lane fold seeds (arbitrary distinct constants).
 LANE_SEEDS = (0x2545F491, 0x9E3779B9)
+
+
+def sort_band(vals: torch.Tensor, doc_ids: torch.Tensor):
+    """Sort one band's (value_hi, value_lo, doc) triples by value.
+
+    ``vals`` (D, 2) int32 words, ``doc_ids`` (D,) int32.  Returns the
+    sorted (vals (D, 2), docs (D,)), lexicographic on the unsigned lanes;
+    equal values keep their input order.
+    """
+    order = torch.sort(as_u32(vals[:, 1]), stable=True).indices
+    order = order[torch.sort(as_u32(vals[order, 0]), stable=True).indices]
+    return vals[order], doc_ids[order]
+
+
+def run_heads(sorted_vals: torch.Tensor) -> torch.Tensor:
+    """Boolean mask: position starts a new equal-value run."""
+    same = (sorted_vals[1:] == sorted_vals[:-1]).all(dim=-1)
+    first = torch.ones(1, dtype=torch.bool, device=sorted_vals.device)
+    return torch.cat([first, ~same])
+
+
+def star_edges(sorted_vals: torch.Tensor, sorted_docs: torch.Tensor):
+    """Candidate edges (run head -> doc) of one sorted band.
+
+    Returns (edges (D, 2) int32, mask (D,) bool): edge i joins the first
+    doc of i's run to ``sorted_docs[i]``; the mask is False at run heads
+    (no self edge).  O(D) edges, with the same connected components as
+    the paper's all-pairs enumeration.
+    """
+    heads = run_heads(sorted_vals)
+    idx = torch.arange(sorted_docs.shape[0], device=sorted_docs.device)
+    head_idx = torch.cummax(torch.where(heads, idx, 0), dim=0).values
+    edges = torch.stack([sorted_docs[head_idx], sorted_docs], dim=-1)
+    return edges.to(torch.int32), ~heads
 
 
 def candidate_probability(s, r: int, b: int) -> torch.Tensor:

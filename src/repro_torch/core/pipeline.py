@@ -9,8 +9,8 @@ pipeline's device -- in one pass of K1 (``fused_ingest``), through the
 staged kernels K3 (n-gram hashes) and K4 (minhash) with ``use_kernels``,
 with the staged PyTorch chain, or, with ``byte_ingest``, from raw UTF-8
 bytes through K6 and K1 (``bytes_to_bands``) -- then clusters on the
-host: one
-``engine.ClusterAccumulator`` fed a ``candidates.BandMatrixSource``, with
+host as one chunk of a ``core.session.DedupSession`` (one
+``engine.ClusterAccumulator`` fed a ``candidates.BandMatrixSource``), with
 exact Jaccard or the signature estimate (``numpy``, ``torch`` or
 ``kernel`` backend, the last being K2) as the verifier.
 """
@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lsh, minhash, shingle
-from repro_torch.core.candidates import BandMatrixSource
-from repro_torch.core.engine import ClusterAccumulator, ClusterStats
+from repro_torch.core.engine import ClusterStats
 from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
 from repro_torch.core.unionfind import ThresholdUnionFind
 from repro_torch.core.verify import (
@@ -272,7 +271,13 @@ class DedupPipeline:
     # -- end to end ----------------------------------------------------------
 
     def run(self, texts: list[str]) -> DedupResult:
-        """One-shot dedup of ``texts``: labels, keep mask and evaluated pairs."""
+        """One-shot dedup of ``texts``: labels, keep mask and evaluated pairs.
+
+        The clustering is one chunk of a host ``DedupSession``
+        (``_merge_precomputed``), fed the verifier ``make_verifier`` builds.
+        """
+        from repro_torch.core.session import DedupSession
+
         cfg = self.config
         timings = {}
         if cfg.byte_ingest:
@@ -305,29 +310,27 @@ class DedupPipeline:
                                       sig if on_host else sig_dev)
         timings["verifier_build_s"] = time.perf_counter() - t0
 
+        sess = DedupSession(cfg, verifier=verifier, device=self.device)
+        snap = sess._merge_precomputed(token_lists, sig, bands)
+        # cluster_s is the merge (engine loop and verify); the snapshot's
+        # labels and sorted pair list are timed apart, as labels_s (with
+        # the keep mask) and pairs_s.
+        timings["cluster_s"] = sess.stage_timings["merge_s"]
+        timings["verify_s"] = snap.stats.verify_seconds
         t0 = time.perf_counter()
-        acc = ClusterAccumulator(
-            len(texts), verifier, cfg.edge_threshold, cfg.tree_threshold,
-            use_disjoint_sets=cfg.use_disjoint_sets, batch=cfg.verify_batch)
-        stats = acc.feed(BandMatrixSource(bands))
-        timings["cluster_s"] = time.perf_counter() - t0
-        timings["verify_s"] = stats.verify_seconds
-
-        t0 = time.perf_counter()
-        labels = acc.uf.components()
+        labels = snap.labels
         # The first doc of each cluster is its representative.
         keep = np.zeros(len(texts), dtype=bool)
         keep[np.unique(labels, return_index=True)[1]] = True
-        timings["labels_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pairs = acc.pairs
-        timings["pairs_s"] = time.perf_counter() - t0
+        timings["labels_s"] = (sess.stage_timings["labels_s"]
+                               + time.perf_counter() - t0)
+        timings["pairs_s"] = sess.stage_timings["pairs_s"]
         return DedupResult(
             labels=labels,
             keep_mask=keep,
-            pairs=pairs,
-            stats=stats,
-            uf=acc.uf,
+            pairs=snap.pairs,
+            stats=snap.stats,
+            uf=sess.uf,
             signatures=sig,
             bands=bands,
             timings=timings,

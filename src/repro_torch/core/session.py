@@ -1,0 +1,646 @@
+"""Incremental multi-step ingest: the host ``DedupSession``.
+
+Port of the host slice of ``repro.core.session``.  ``DedupSession``
+owns the long-lived clustering state of a corpus that arrives in
+chunks:
+
+* one ``engine.ClusterAccumulator`` (union-find, verified-sim cache,
+  cumulative ``ClusterStats``);
+* global doc-id allocation (``DocIdAllocator``);
+* the retained per-doc rows, in one growing verifier (signature rows in
+  estimate mode, interned n-gram id rows in exact mode);
+* a retained band index (``BandIndex``) for cross-step candidates.
+
+Each chunk contributes two candidate families: its own band matrix
+(``candidates.BandMatrixSource``), and the band collisions of its band
+values against the retained index, which become explicit edges
+(``candidates.ShardedEdgeSource``) verified through the same engine.
+Over N chunks the candidate-pair set equals the one-shot run's; only the
+feed order differs.
+
+The read path publishes an immutable ``SessionView``
+(``DedupSession.view``), which ``core.query`` and
+``serving.dedup_service.DedupQueryService`` serve.
+
+The session's stages run on its ``device`` (``"cuda"`` unless told):
+signatures and bands through the ``DedupPipeline`` stages (K1, K3 and
+K4, or K6 with byte ingest), and the kernel verify backend through K2.
+Not ported yet, and raising ``NotImplementedError``: the streaming and
+sharded backends, retention policies, ``refine`` and ``over_store``
+(``ROADMAP.md`` queue 1, items 2 and 4).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field, replace
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.core import minhash, shingle
+from repro_torch.core.candidates import BandMatrixSource, ShardedEdgeSource
+from repro_torch.core.engine import ClusterAccumulator, ClusterStats
+from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
+from repro_torch.core.pipeline import DedupConfig
+from repro_torch.core.unionfind import ThresholdUnionFind
+from repro_torch.core.verify import (
+    BatchVerifier,
+    ExactJaccardVerifier,
+    SignatureVerifier,
+    as_verifier,
+)
+from repro_torch.device import resolve_device
+
+BACKENDS = ("host", "streaming", "sharded")
+
+_ITEM2 = ("is not ported yet (ROADMAP.md, queue 1 item 2: multi-step "
+          "sessions and bounded state)")
+_ITEM4 = "is not ported yet (ROADMAP.md, queue 1 item 4: sharded session)"
+
+
+class DocIdAllocator:
+    """Global doc-id allocation for chunked ingest.
+
+    ``allocate(n)`` hands out the next contiguous block and returns its
+    base; ``device_offsets(base, d_loc, n_dev)`` is the sharded step's
+    per-device ``doc_offsets`` (device i's first row is
+    ``base + i * d_loc``).
+    """
+
+    def __init__(self, base: int = 0):
+        self.base = int(base)
+        self.next = int(base)
+
+    @property
+    def n_docs(self) -> int:
+        """Exclusive upper bound of allocated ids (gap ids included)."""
+        return self.next
+
+    def allocate(self, n: int) -> int:
+        base = self.next
+        self.next += int(n)
+        return base
+
+    @staticmethod
+    def device_offsets(base: int, d_loc: int, n_dev: int) -> np.ndarray:
+        return np.uint32(base) + np.uint32(d_loc) * np.arange(
+            n_dev, dtype=np.uint32)
+
+
+class BandIndex:
+    """Retained band values of every ingested doc, keyed for collision.
+
+    ``match_then_insert`` is the cross-step candidate generator: each
+    (band, value) of the chunk that hits a doc of an EARLIER chunk emits
+    an (old_doc, new_doc) edge, and then the chunk's values are
+    inserted.  Same-chunk collisions are never emitted (the chunk's band
+    matrix owns those).  Keys are ``(hi, lo)`` Python ints of the uint32
+    band lanes.
+
+    The bounded form (``key_budget`` with per-band Bloom filters,
+    ``track_entries`` and ``evict``) is not ported yet.
+    """
+
+    def __init__(self, num_bands: int, *, key_budget: int | None = None,
+                 bloom_bits: int = 1 << 17, bloom_hashes: int = 4,
+                 track_entries: bool = False):
+        if (key_budget is not None or track_entries
+                or (bloom_bits, bloom_hashes) != (1 << 17, 4)):
+            raise NotImplementedError(
+                f"BandIndex key budgets, Bloom filters and eviction {_ITEM2}")
+        self._maps: list[dict[tuple[int, int], list[int]]] = [
+            {} for _ in range(num_bands)]
+        self.filter_only_hits = 0
+        self.compacted_keys = 0
+
+    @property
+    def num_bands(self) -> int:
+        return len(self._maps)
+
+    def match_then_insert(self, bands: np.ndarray,
+                          doc_id_base: int) -> np.ndarray:
+        """(C, b, 2) uint32 chunk bands -> (E, 2) int64 cross-step edges."""
+        bands = np.asarray(bands)
+        if bands.ndim != 3 or bands.shape[1] != self.num_bands:
+            raise ValueError(
+                f"expected (C, {self.num_bands}, 2) bands, got {bands.shape}")
+        if bands.dtype != np.uint32:
+            raise TypeError(f"expected uint32 band values, got {bands.dtype}")
+        edges: list[tuple[int, int]] = []
+        for j, m in enumerate(self._maps):
+            col = bands[:, j, :].tolist()
+            for i, (hi, lo) in enumerate(col):
+                key = (hi, lo)
+                new_id = doc_id_base + i
+                olds = m.get(key)
+                if olds is not None:
+                    edges.extend((old, new_id) for old in olds
+                                 if old < doc_id_base)
+                    olds.append(new_id)
+                    # Refresh recency (the key order a key budget would
+                    # compact by), as the reference does on every hit.
+                    m[key] = m.pop(key)
+                else:
+                    m[key] = [new_id]
+        if not edges:
+            return np.zeros((0, 2), dtype=np.int64)
+        return np.array(edges, dtype=np.int64)
+
+    def export_maps(self) -> tuple:
+        """Per-band ``{(hi, lo): (doc ids,)}`` copies for a ``SessionView``,
+        bucket lists frozen to tuples.  A pure read."""
+        return tuple({k: tuple(v) for k, v in m.items()} for m in self._maps)
+
+    def export_filters(self) -> tuple:
+        """Per-band Bloom filters for a ``SessionView``: ``None`` for every
+        band, as nothing is compacted without a key budget."""
+        return (None,) * self.num_bands
+
+    def stats(self) -> dict:
+        """Memory and recall accounting."""
+        return {
+            "n_keys": sum(len(m) for m in self._maps),
+            "n_entries": sum(len(v) for m in self._maps for v in m.values()),
+            "n_docs_tracked": 0,
+            "compacted_keys": self.compacted_keys,
+            "filter_only_hits": self.filter_only_hits,
+            "bloom_bytes": 0,
+        }
+
+
+@dataclass(frozen=True)
+class ClusterSnapshot:
+    """Cluster state after an ``ingest`` call: a value object.
+
+    ``labels`` is a read-only copy, ``stats`` a counter copy and
+    ``pairs`` a fresh list, so later ingests never change a snapshot.
+    The reference's sharded, retention and refine counters come with
+    those parts of the session.
+    """
+
+    n_docs: int                 # docs ingested so far (id upper bound)
+    labels: np.ndarray          # (n_docs,) cluster root per doc (frozen)
+    stats: ClusterStats         # cumulative engine counters (a copy)
+    pairs: list                 # every evaluated (a, b, sim) so far (a copy)
+    retained_rows: int = 0      # live verifier rows (== n_docs unevicted)
+
+    @property
+    def num_clusters(self) -> int:
+        """Duplicate clusters, i.e. components of size >= 2."""
+        _, counts = np.unique(self.labels, return_counts=True)
+        return int((counts >= 2).sum())
+
+    @property
+    def num_duplicates(self) -> int:
+        """Docs that are non-representative members of some cluster."""
+        return self.n_docs - len(set(self.labels.tolist()))
+
+    def clusters(self, min_size: int = 2) -> list[list[int]]:
+        groups: dict[int, list[int]] = {}
+        for i, r in enumerate(self.labels):
+            groups.setdefault(int(r), []).append(i)
+        return [v for v in groups.values() if len(v) >= min_size]
+
+
+@dataclass(frozen=True)
+class ExactRowsView:
+    """Frozen exact-verifier rows inside a ``SessionView``.
+
+    ``vocab`` is the live verifier's, shared by reference: interning is
+    append-only, so a read path that only ``get``s from it stays valid
+    across later ingests.
+    """
+
+    ids: np.ndarray             # (R, lmax) padded sorted n-gram id rows
+    lengths: np.ndarray         # (R,) real row lengths
+    slot_of: dict | None        # doc -> row (eviction layout; None = id)
+    vocab: dict                 # n-gram -> id (append-only, shared)
+    ngram: int
+
+    def row_for(self, doc: int) -> np.ndarray:
+        slot = doc if self.slot_of is None else self.slot_of[doc]
+        return self.ids[slot][: int(self.lengths[slot])]
+
+
+@dataclass(frozen=True)
+class SessionView:
+    """Immutable read-path handle over a ``DedupSession``.
+
+    Published by one attribute swap on the session when a read follows a
+    mutation.  Everything a query touches is a frozen copy (labels, band
+    maps) or an append-only buffer whose visible rows are never
+    rewritten (the retained signature or token rows), so a query holding
+    a view cannot race a later ingest.
+
+    ``device`` is the session's: the read path's device verify runs
+    there.  ``band_store`` (the disk tier) is always ``None``
+    until ``core.bandstore`` is ported.
+    """
+
+    version: int                # monotone publication counter
+    n_docs: int                 # docs covered (labels bound)
+    edge_threshold: float       # the engine's duplicate threshold
+    num_bands: int
+    rows_per_band: int
+    labels: np.ndarray          # (n_docs,) cluster root per doc (frozen)
+    band_maps: tuple            # per band: {(hi, lo): (doc ids,)}
+    band_filters: tuple         # per band: a Bloom filter or None
+    signatures: np.ndarray      # retained rows (estimate sessions)
+    slot_of: dict | None        # doc -> signature row (eviction layout)
+    exact: ExactRowsView | None = None   # exact-verification sessions
+    band_store: None = None
+    device: torch.device = field(default=torch.device("cpu"), compare=False)
+
+    @property
+    def mode(self) -> str:
+        return "exact" if self.exact is not None else "estimate"
+
+    def root_of(self, doc: int) -> int:
+        return int(self.labels[doc])
+
+    def slot_index(self, ids: np.ndarray) -> np.ndarray:
+        """Global doc ids -> physical signature rows."""
+        ids = np.asarray(ids, dtype=np.int64)
+        if self.slot_of is None:
+            return ids
+        so = self.slot_of
+        return np.fromiter((so[int(i)] for i in ids.ravel()), dtype=np.int64,
+                           count=ids.size).reshape(ids.shape)
+
+    def rows_for(self, doc_ids) -> np.ndarray:
+        """Retained signature rows for ``doc_ids`` at publication time."""
+        ids = np.asarray(doc_ids, dtype=np.int64)
+        if ids.size == 0:
+            return np.zeros((0,) + self.signatures.shape[1:],
+                            dtype=self.signatures.dtype)
+        return self.signatures[self.slot_index(ids)]
+
+
+class DedupSession:
+    """Long-lived incremental dedup (the host backend).
+
+    ``ingest(chunk)`` clusters one chunk of documents into the session
+    and returns a cumulative ``ClusterSnapshot``; ``ingest_stream``
+    dispatches chunk t+1 before merging chunk t.  Verification is exact
+    Jaccard or the signature estimate per ``config.exact_verification``,
+    as in ``DedupPipeline``.
+
+    ``device`` (``"cuda"`` unless told; raises without a CUDA device
+    unless ``"cpu"`` is passed) is where the pipeline stages and the
+    device verify backends run.
+    """
+
+    def __init__(
+        self,
+        config: DedupConfig | None = None,
+        backend: str = "host",
+        *,
+        doc_id_base: int = 0,
+        verifier: BatchVerifier | None = None,
+        retention=None,
+        device="cuda",
+    ):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        if backend == "streaming":
+            raise NotImplementedError(f"the streaming backend {_ITEM2}")
+        if backend == "sharded":
+            raise NotImplementedError(f"the sharded backend {_ITEM4}")
+        if retention is not None:
+            raise NotImplementedError(f"retention policies {_ITEM2}")
+        self.config = config or DedupConfig()
+        self.backend = backend
+        self.device = resolve_device(device)
+        self.allocator = DocIdAllocator(doc_id_base)
+        self._verifier = as_verifier(verifier) if verifier is not None \
+            else None
+        self._external_verifier = verifier is not None
+        self.acc = ClusterAccumulator(
+            int(doc_id_base), _NullVerifier(), self.config.edge_threshold,
+            self.config.tree_threshold,
+            use_disjoint_sets=self.config.use_disjoint_sets,
+            batch=self.config.verify_batch)
+        self.band_index = BandIndex(num_bands=self.config.num_bands)
+        self.seeds = minhash.default_seeds(self.config.num_hashes)
+        self.steps_ingested = 0
+        # Docs whose merge has completed; snapshots cover these.  With
+        # ingest_stream's lookahead the allocator runs one chunk ahead.
+        self.n_merged = int(doc_id_base)
+        self._finalized = False
+        # Wall times and counts of the last merge and snapshot:
+        # ``merge_s`` (retain, the chunk's band matrix, the cross-step
+        # pass), ``cross_step_s`` (BandIndex.match_then_insert and the
+        # verify of its edges), ``cross_step_edges``, and the snapshot's
+        # ``labels_s`` and ``pairs_s``.
+        self.stage_timings: dict[str, float] = {}
+        # Read-path publication state (SessionView).
+        self._view_cache: SessionView | None = None
+        self._view_key = None
+        self._view_version = 0
+        self._impl = _HostBackend(self)
+
+    @classmethod
+    def over_store(cls, sd, *, config=None, verifier=None):
+        raise NotImplementedError(f"DedupSession.over_store {_ITEM2}")
+
+    # -- state -------------------------------------------------------------
+
+    @property
+    def n_docs(self) -> int:
+        """Docs fully ingested (merged) so far: snapshot coverage."""
+        return self.n_merged
+
+    @property
+    def stats(self) -> ClusterStats:
+        return self.acc.stats
+
+    @property
+    def uf(self) -> ThresholdUnionFind:
+        return self.acc.uf
+
+    @property
+    def verifier(self) -> BatchVerifier | None:
+        return self._verifier
+
+    @property
+    def signatures(self) -> np.ndarray:
+        """The retained (D, M) uint32 signature matrix, row i == doc i.
+
+        Owned by the session's verifier; empty for exact-mode or
+        external-verifier sessions, which do not verify by signatures.
+        """
+        sig = getattr(self._verifier, "signatures", None)
+        if sig is None:
+            return np.zeros((0, self.config.num_hashes), dtype=np.uint32)
+        return sig
+
+    def snapshot(self) -> ClusterSnapshot:
+        """The cumulative cluster state as a value object.  Records
+        ``labels_s`` and ``pairs_s`` (building each copy) in
+        ``stage_timings``."""
+        retained = getattr(self._verifier, "n_live_rows", None)
+        t0 = time.perf_counter()
+        labels = self.uf.components()[: self.n_docs]
+        labels.setflags(write=False)
+        t1 = time.perf_counter()
+        pairs = self.acc.pairs
+        self.stage_timings.update(labels_s=t1 - t0,
+                                  pairs_s=time.perf_counter() - t1)
+        return ClusterSnapshot(
+            n_docs=self.n_docs,
+            labels=labels,
+            stats=replace(self.acc.stats),
+            pairs=pairs,
+            retained_rows=retained if retained is not None else self.n_docs,
+        )
+
+    # -- read path (SessionView publication) ---------------------------------
+
+    def _view_state_key(self) -> tuple:
+        """Covers every mutation that can change a view's contents."""
+        return (self.steps_ingested, self.n_merged,
+                self.acc.stats.unions_done)
+
+    def view(self) -> SessionView:
+        """The current immutable read-path handle over this session.
+
+        Built on the first read after a mutation and cached: the same
+        object comes back until the session changes.  A query holding an
+        older view keeps getting the same answers after later ingests.
+        """
+        key = self._view_state_key()
+        if self._view_cache is not None and self._view_key == key:
+            return self._view_cache
+        labels = self.uf.components()[: self.n_docs]
+        labels.setflags(write=False)
+        cfg = self.config
+        v = self._verifier
+        exact = None
+        sig = np.zeros((0, cfg.num_hashes), dtype=np.uint32)
+        slot_of = None
+        if isinstance(v, ExactJaccardVerifier):
+            if v._vocab is None or v._ngram is None:
+                raise ValueError(
+                    "exact verifier was built from raw id rows (no "
+                    "vocab/ngram); the read path cannot intern query "
+                    "documents; build it with from_token_lists")
+            ids, lengths, slot = v.frozen_rows()
+            exact = ExactRowsView(ids=ids, lengths=lengths, slot_of=slot,
+                                  vocab=v._vocab, ngram=v._ngram)
+        elif isinstance(v, SignatureVerifier):
+            sig, slot_of = v.frozen_rows()
+        elif v is not None and self.n_docs > self.allocator.base:
+            raise ValueError(
+                "SessionView needs retained signature or token rows; "
+                "external callback verifiers keep neither; pass a "
+                "SignatureVerifier/ExactJaccardVerifier instead")
+        view = SessionView(
+            version=self._view_version + 1,
+            n_docs=self.n_docs,
+            edge_threshold=cfg.edge_threshold,
+            num_bands=cfg.num_bands,
+            rows_per_band=cfg.rows_per_band,
+            labels=labels,
+            band_maps=self.band_index.export_maps(),
+            band_filters=self.band_index.export_filters(),
+            signatures=sig,
+            slot_of=slot_of,
+            exact=exact,
+            device=self.device,
+        )
+        # The one sanctioned read-path mutation: this cache swap IS the
+        # atomic single-writer publication (same key, same object);
+        # queries never observe a half-built view.
+        # repro-lint: disable=RPR002
+        self._view_version = view.version
+        self._view_cache, self._view_key = view, key  # repro-lint: disable=RPR002
+        return view
+
+    # -- ingest ------------------------------------------------------------
+
+    def _check_live(self):
+        if self._finalized:
+            raise ValueError(
+                "this session was finalized by a one-shot ingest "
+                "(DedupPipeline.run adapter) and skipped the cross-step "
+                "index; start a fresh DedupSession for chunked ingest")
+
+    def ingest(self, texts: Iterable[str]) -> ClusterSnapshot:
+        """Cluster one chunk of documents; returns a cumulative snapshot."""
+        self._check_live()
+        self._impl.merge(self._impl.dispatch(list(texts)))
+        return self.snapshot()
+
+    def ingest_tokens(self,
+                      token_lists: list[list[str]]) -> ClusterSnapshot:
+        """``ingest`` over pre-tokenized documents."""
+        self._check_live()
+        self._impl.merge(self._impl.dispatch(list(token_lists),
+                                             tokenized=True))
+        return self.snapshot()
+
+    def ingest_stream(
+        self, chunks: Iterable[list], *, tokenized: bool = False,
+    ) -> Iterator[ClusterSnapshot]:
+        """Multi-chunk ingest with a one-chunk dispatch lookahead.
+
+        Chunk t+1 is dispatched (ids allocated, signatures and bands
+        computed) before chunk t is merged.  Yields the cumulative
+        snapshot after each chunk, in order; the results equal
+        sequential ``ingest`` calls, since merges still run in chunk
+        order against the same accumulator and index.
+        """
+        self._check_live()
+        pending = None
+        for chunk in chunks:
+            nxt = self._impl.dispatch(list(chunk), tokenized=tokenized)
+            if pending is not None:
+                self._impl.merge(pending)
+                yield self.snapshot()
+            pending = nxt
+        if pending is not None:
+            self._impl.merge(pending)
+            yield self.snapshot()
+
+    def _merge_precomputed(self, token_lists, sig, bands) -> ClusterSnapshot:
+        """Ingest of one chunk whose tokenize, signature and band stages
+        the caller already ran (the ``DedupPipeline.run`` adapter).
+
+        One-shot by construction: the cross-step index is skipped (one
+        chunk has no earlier chunk to collide with), so the session is
+        finalized and takes no further chunks.  ``sig`` and ``bands``
+        are numpy uint32 arrays.
+        """
+        if self._finalized:
+            raise ValueError("one-shot session already finalized")
+        base = self.allocator.allocate(len(token_lists))
+        self._impl.merge((base, token_lists, np.asarray(sig),
+                          np.asarray(bands)), index=False)
+        self._finalized = True
+        return self.snapshot()
+
+    def refine(self):
+        raise NotImplementedError(f"DedupSession.refine {_ITEM2}")
+
+    # -- backend plumbing ----------------------------------------------------
+
+    def _retain(self, token_lists, sig) -> None:
+        """Grow the session verifier with one chunk's docs (``sig``:
+        numpy uint32 rows, or int32 word rows on the session's device).
+
+        The first chunk builds it, with blank rows for the ids below the
+        chunk's base (``doc_id_base`` sessions: those ids have no band
+        rows, so they never become candidates); later chunks extend it.
+        """
+        if self._external_verifier:
+            return
+        cfg = self.config
+        if self._verifier is None:
+            gap = self.n_merged  # ids below the first chunk's base
+            if self._wants_exact():
+                self._verifier = ExactJaccardVerifier.from_token_lists(
+                    [[]] * gap + list(token_lists), cfg.ngram)
+                return
+            full = sig
+            if gap:
+                blank = np.zeros((gap, sig.shape[1]), dtype=np.uint32)
+                full = (torch.cat([u32_from_numpy(blank, sig.device), sig])
+                        if isinstance(sig, torch.Tensor)
+                        else np.concatenate([blank, sig]))
+            self._verifier = SignatureVerifier(
+                full, backend=cfg.resolved_backend(), device=self.device)
+        elif self._wants_exact():
+            self._verifier.extend_token_lists(token_lists)
+        else:
+            self._verifier.extend_signatures(sig)
+
+    def _wants_exact(self) -> bool:
+        return self.config.exact_verification
+
+    def _estimate_verifier(self) -> BatchVerifier:
+        """The verifier for cross-step edges: the session's own (the
+        device-scored registry of the sharded backend is not ported)."""
+        return self._verifier
+
+    def _feed_cross_step(self, bands: np.ndarray, base: int) -> int:
+        """Cross-step candidates: chunk bands vs the retained index.
+        Returns the number of edges fed."""
+        edges = self.band_index.match_then_insert(bands, base)
+        if len(edges):
+            self.acc.feed(ShardedEdgeSource(edges, num_docs=self.n_docs),
+                          verifier=self._estimate_verifier())
+        return len(edges)
+
+
+class _NullVerifier(BatchVerifier):
+    """Placeholder until the first chunk builds the real verifier (the
+    accumulator is built before any signatures exist)."""
+
+    def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
+        raise RuntimeError("session verifier not initialised; "
+                           "ingest a chunk first")
+
+
+class _HostBackend:
+    """In-memory per-chunk band matrix (the ``DedupPipeline`` shape)."""
+
+    def __init__(self, sess: DedupSession):
+        from repro_torch.core.pipeline import DedupPipeline
+
+        self.sess = sess
+        self.pipe = DedupPipeline(sess.config, device=sess.device)
+        self.pipe.seeds = sess.seeds
+
+    def dispatch(self, chunk, tokenized: bool = False):
+        sess = self.sess
+        if sess.config.byte_ingest:
+            # Raw UTF-8 bytes go to the device untokenized.  Pre-tokenized
+            # chunks are joined with spaces: tokens are alphanumeric, so
+            # the byte tokenizer recovers them exactly.
+            docs = [" ".join(t) for t in chunk] if tokenized else list(chunk)
+            base = sess.allocator.allocate(len(docs))
+            if not docs:
+                return (base, docs, None, None)
+            pad = shingle.pow2_bucket(
+                max(len(d.encode("utf-8")) for d in docs) + 1)
+            return (base, docs, *self._arrays(
+                self.pipe._device_arrays_bytes(docs, pad_len=pad)))
+        toks = chunk if tokenized else self.pipe.tokenize(chunk)
+        base = sess.allocator.allocate(len(toks))
+        if not toks:
+            return (base, toks, None, None)
+        # The token width buckets to a power of two, as the reference's
+        # does to bound its jit compiles; signatures do not depend on it.
+        pad = shingle.pow2_bucket(max((len(t) for t in toks), default=1))
+        return (base, toks, *self._arrays(
+            self.pipe._device_arrays(toks, pad_len=pad)))
+
+    def _arrays(self, device_arrays) -> tuple:
+        """A chunk's (signatures, bands) from the pipeline's device
+        tensors.  The bands go to the host (the band index and the
+        engine read them there); the signatures stay on the device
+        unless the verifier is the numpy backend's, so a device verifier
+        grows from them without a round trip through the host."""
+        sig, bands = device_arrays
+        if self.sess.config.resolved_backend() == "numpy":
+            sig = u32_to_numpy(sig)
+        return sig, u32_to_numpy(bands)
+
+    def merge(self, pending, index: bool = True):
+        base, toks, sig, bands = pending
+        if sig is None:
+            return
+        sess = self.sess
+        t0 = time.perf_counter()
+        sess._retain(toks, sig)
+        sess.n_merged = base + len(toks)
+        sess.acc.grow(sess.n_docs)
+        sess.acc.feed(BandMatrixSource(bands, doc_id_base=base),
+                      verifier=sess._verifier)
+        t1 = time.perf_counter()
+        n_edges = sess._feed_cross_step(bands, base) if index else 0
+        t2 = time.perf_counter()
+        sess.steps_ingested += 1
+        sess.stage_timings.update(merge_s=t2 - t0, cross_step_s=t2 - t1,
+                                  cross_step_edges=n_edges)

@@ -116,26 +116,97 @@ class SignatureVerifier(BatchVerifier):
         self.backend = backend
         self.batch_pairs = int(batch_pairs)
         self.device = resolve_device(device)
+        # Up to two copies of the matrix, each a capacity-doubling buffer
+        # whose first ``_n_rows`` rows are row i == doc i: the host copy
+        # (numpy uint32) and the device copy (int32 words on ``device``).
+        # Either is made from the other at first use; after that every
+        # ``extend_signatures`` appends to each copy that exists, so the
+        # device copy grows on the device and is never uploaded again.
+        self._host: np.ndarray | None = None
+        self._dev: torch.Tensor | None = None
         if isinstance(signatures, torch.Tensor):
-            self._host = None
             self._dev = signatures.to(self.device)
-            self.num_docs = signatures.shape[0]
         else:
             self._host = np.asarray(signatures, dtype=np.uint32)
-            self._dev = None
-            self.num_docs = self._host.shape[0]
+        self._n_rows = len(signatures)
+
+    @property
+    def num_docs(self) -> int:
+        return self._n_rows
+
+    @property
+    def n_live_rows(self) -> int:
+        """Rows holding a retained document's signature (all of them:
+        the port has no eviction yet)."""
+        return self._n_rows
 
     @property
     def signatures(self) -> np.ndarray:
-        """The (D, M) uint32 matrix on the host."""
+        """The (D, M) uint32 matrix on the host, row i == doc i."""
         if self._host is None:
-            self._host = u32_to_numpy(self._dev)
-        return self._host
+            self._host = u32_to_numpy(self._device_signatures())
+        return self._host[: self._n_rows]
 
     def _device_signatures(self) -> torch.Tensor:
+        """The (D, M) matrix as int32 words on ``device``: a contiguous
+        row prefix of the growth buffer, so its rows keep the buffer's
+        alignment."""
         if self._dev is None:
-            self._dev = u32_from_numpy(self._host, self.device)
-        return self._dev
+            self._dev = u32_from_numpy(self.signatures, self.device)
+        return self._dev[: self._n_rows]
+
+    def rows_for(self, doc_ids) -> np.ndarray:
+        """Retained signature rows for ``doc_ids``."""
+        return self.signatures[np.asarray(doc_ids, dtype=np.int64)]
+
+    def frozen_rows(self) -> tuple[np.ndarray, None]:
+        """(signatures, None): the read path's snapshot of the rows.
+
+        Extensions only write past this row bound or into a new buffer,
+        so the current host row prefix never changes and is shared as is.
+        The ``None`` is the doc -> slot map of the eviction layout, which
+        the port does not have yet.
+        """
+        return self.signatures, None
+
+    def extend_signatures(self, rows) -> None:
+        """Append the signature rows of newly ingested docs, in doc order.
+
+        ``rows`` is a (C, M) numpy uint32 array or int32 word tensor.
+        Each existing copy grows by capacity doubling, so a chunk costs
+        O(chunk) amortized; the throughput counters carry over.
+        """
+        C = len(rows)
+        if C == 0:
+            return
+        M = self._width
+        if rows.shape[-1] != M:
+            raise ValueError(f"signature width {rows.shape[-1]} != existing {M}")
+        n0, n1 = self._n_rows, self._n_rows + C
+        if self._host is not None:
+            host = (u32_to_numpy(rows) if isinstance(rows, torch.Tensor)
+                    else np.asarray(rows, dtype=np.uint32))
+            if n1 > len(self._host):
+                buf = np.empty((max(n1, 2 * n0), M), dtype=np.uint32)
+                buf[:n0] = self._host[:n0]
+                self._host = buf
+            self._host[n0:n1] = host
+        if self._dev is not None:
+            dev = (rows.to(self.device) if isinstance(rows, torch.Tensor)
+                   else u32_from_numpy(rows, self.device))
+            if n1 > len(self._dev):
+                buf = torch.empty((max(n1, 2 * n0), M), dtype=torch.int32,
+                                  device=self.device)
+                buf[:n0] = self._dev[:n0]
+                self._dev = buf
+            self._dev[n0:n1] = dev
+        self._n_rows = n1
+
+    @property
+    def _width(self) -> int:
+        """M, the signature width."""
+        buf = self._host if self._host is not None else self._dev
+        return buf.shape[1]
 
     def _upload_pairs(self, pairs: np.ndarray):
         """The two index columns of a (P, 2) int64 batch on ``device``,
@@ -253,42 +324,114 @@ class DeviceScoredEdgeVerifier(ShardedEdgeVerifier):
 class ExactJaccardVerifier(BatchVerifier):
     """Vectorized exact Jaccard over sorted interned n-gram id arrays.
 
-    Each document's n-gram set is interned to integer ids once
-    (``from_token_lists``); a batch of P pairs is then verified by
+    Each document's n-gram set is interned to integer ids once, through
+    a vocabulary that persists across chunks (``from_token_lists``,
+    ``extend_token_lists``); a batch of P pairs is then verified by
     concatenating the two padded id rows, sorting each row, and counting
-    adjacent equal values (|A ∩ B| by merge).  Pad slots carry globally
-    unique negative sentinels, so they never match.  Matches
+    adjacent equal values (|A ∩ B| by merge).  Matches
     ``jaccard.exact_jaccard`` on n-gram sets exactly.
     """
 
-    def __init__(self, id_rows: list[np.ndarray], batch_pairs: int = 2048):
+    def __init__(self, id_rows: list[np.ndarray], batch_pairs: int = 2048,
+                 *, _vocab: dict | None = None, _ngram: int | None = None):
         super().__init__()
         self.batch_pairs = int(batch_pairs)
-        rows = [np.asarray(r, dtype=np.int64) for r in id_rows]
-        self.lengths = np.array([len(r) for r in rows], dtype=np.int64)
-        lmax = int(max(1, self.lengths.max(initial=1)))
+        self._rows = [np.asarray(r, dtype=np.int64) for r in id_rows]
+        self._vocab = _vocab  # n-gram -> id (None: raw id rows only)
+        self._ngram = _ngram
+        self._rebuild()
+
+    @staticmethod
+    def _pad_rows(rows: list[np.ndarray], row0: int, lmax: int) -> np.ndarray:
+        """Pad id rows to (len(rows), lmax).
+
+        Pad slot (row0 + i, j) holds the negative sentinel
+        ``-(1 + (row0 + i) * lmax + j)``: unique across the matrix and
+        below every interned id, so a pad matches nothing, and it stays
+        valid when later chunks grow the vocabulary (``extend_id_rows``).
+        """
         d = len(rows)
-        self.ids = -(1 + np.arange(d * lmax, dtype=np.int64).reshape(d, lmax))
+        out = -(1 + np.int64(row0) * lmax
+                + np.arange(d * lmax, dtype=np.int64).reshape(d, lmax))
         for i, row in enumerate(rows):
-            self.ids[i, : len(row)] = row
+            out[i, : len(row)] = row
+        return out
+
+    def _rebuild(self) -> None:
+        """Pad every row again at the current longest row's width."""
+        self._n_rows = len(self._rows)
+        self._len_buf = np.array([len(r) for r in self._rows], dtype=np.int64)
+        self._lmax = int(max(1, self._len_buf.max(initial=1)))
+        self._ids_buf = self._pad_rows(self._rows, 0, self._lmax)
+        self.lengths = self._len_buf
+        self.ids = self._ids_buf
+
+    @property
+    def n_live_rows(self) -> int:
+        return self._n_rows
+
+    def extend_id_rows(self, id_rows: list[np.ndarray]) -> None:
+        """Append sorted id rows, interned in this verifier's namespace.
+
+        Capacity-doubling buffers make a chunk O(chunk) amortized while
+        its rows fit the current width; a chunk holding a longer
+        document than any before pads the whole matrix again.
+        """
+        if not id_rows:
+            return
+        new = [np.asarray(r, dtype=np.int64) for r in id_rows]
+        n0, n1 = self._n_rows, self._n_rows + len(new)
+        self._rows.extend(new)
+        if max(len(r) for r in new) > self._lmax:
+            self._rebuild()
+            return
+        if n1 > len(self._ids_buf):
+            cap = max(n1, 2 * n0)
+            ids_buf = np.empty((cap, self._lmax), dtype=np.int64)
+            ids_buf[:n0] = self._ids_buf[:n0]
+            len_buf = np.empty((cap,), dtype=np.int64)
+            len_buf[:n0] = self._len_buf[:n0]
+            self._ids_buf, self._len_buf = ids_buf, len_buf
+        self._ids_buf[n0:n1] = self._pad_rows(new, n0, self._lmax)
+        self._len_buf[n0:n1] = [len(r) for r in new]
+        self._n_rows = n1
+        self.ids = self._ids_buf[:n1]
+        self.lengths = self._len_buf[:n1]
+
+    def frozen_rows(self) -> tuple[np.ndarray, np.ndarray, None]:
+        """(ids, lengths, None): the read path's snapshot of the rows.
+
+        Extensions write past this row bound or into new buffers, so the
+        current row prefixes never change.  The ``None`` is the eviction
+        layout's doc -> slot map, which the port does not have yet.
+        """
+        return self.ids, self.lengths, None
+
+    def extend_token_lists(self, token_lists: list[list[str]]) -> None:
+        """Intern new documents with the persistent vocabulary and append."""
+        if self._vocab is None or self._ngram is None:
+            raise ValueError(
+                "verifier was built from raw id rows (no vocab); use "
+                "extend_id_rows with consistently interned rows")
+        self.extend_id_rows(_intern_rows(
+            self._vocab, (ngram_set(t, self._ngram) for t in token_lists)))
 
     @classmethod
     def from_token_lists(cls, token_lists: list[list[str]], n: int = 8,
                          batch_pairs: int = 2048) -> "ExactJaccardVerifier":
         """Intern every document's n-gram set to sorted int64 id rows."""
-        return cls.from_ngram_sets([ngram_set(t, n) for t in token_lists],
-                                   batch_pairs=batch_pairs)
+        vocab: dict = {}
+        rows = _intern_rows(vocab, (ngram_set(t, n) for t in token_lists))
+        return cls(rows, batch_pairs=batch_pairs, _vocab=vocab, _ngram=n)
 
     @classmethod
-    def from_ngram_sets(cls, ngram_sets: list[set],
-                        batch_pairs: int = 2048) -> "ExactJaccardVerifier":
+    def from_ngram_sets(cls, ngram_sets: list[set], batch_pairs: int = 2048,
+                        n: int | None = None) -> "ExactJaccardVerifier":
+        """Intern pre-built n-gram sets.  ``n``, the width they were built
+        with, enables ``extend_token_lists``."""
         vocab: dict = {}
-        rows = []
-        for s in ngram_sets:
-            ids = {vocab.setdefault(g, len(vocab)) for g in s}
-            rows.append(np.sort(np.fromiter(ids, dtype=np.int64,
-                                            count=len(ids))))
-        return cls(rows, batch_pairs=batch_pairs)
+        rows = _intern_rows(vocab, ngram_sets)
+        return cls(rows, batch_pairs=batch_pairs, _vocab=vocab, _ngram=n)
 
     def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
         a_idx, b_idx = pairs[:, 0], pairs[:, 1]
@@ -299,6 +442,15 @@ class ExactJaccardVerifier(BatchVerifier):
         # Two empty sets have Jaccard 1.0 (matches jaccard.exact_jaccard).
         return np.where(
             union > 0, inter / np.maximum(union, 1), 1.0).astype(np.float32)
+
+
+def _intern_rows(vocab: dict, ngram_sets) -> list[np.ndarray]:
+    """n-gram sets -> sorted int64 id rows, new n-grams added to ``vocab``."""
+    rows = []
+    for s in ngram_sets:
+        ids = {vocab.setdefault(g, len(vocab)) for g in s}
+        rows.append(np.sort(np.fromiter(ids, dtype=np.int64, count=len(ids))))
+    return rows
 
 
 def as_verifier(obj) -> BatchVerifier:

@@ -1,0 +1,163 @@
+"""Dedup command line of the port: the host mode of ``repro.launch.dedup``.
+
+The corpus is split into ``--steps`` chunks and ingested through one
+``core.session.DedupSession``; one report line gives the cumulative
+session counters, and ``--query N`` then re-queries N ingested notes
+and one novel note through a ``DedupQueryService`` over the warm
+session.  Signatures, bands and the ``kernel`` verify backend run on
+``--device`` (``cuda`` unless told: K1 with ``--fused-ingest``, K3 and
+K4 with ``--use-kernels``, K6 with ``--byte-ingest``, K2 with
+``--backend kernel``).
+
+  PYTHONPATH=src python -m repro_torch.launch.dedup --notes 500 --dups 300
+  PYTHONPATH=src python -m repro_torch.launch.dedup --steps 4 --fused-ingest \\
+      --estimate --backend kernel --query 64
+  PYTHONPATH=src python -m repro_torch.launch.dedup --device cpu --estimate
+
+The streaming and sharded modes, retention budgets, ``--refine-every``
+and the sqlite store are not ported yet: those flags exit with a message
+naming their ``ROADMAP.md`` queue item.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def report_session(mode: str, snap, seconds: float, extra: str = ""):
+    """The cumulative report line (``snap`` is a ``ClusterSnapshot``):
+    docs ingested, duplicate clusters, duplicates and verify throughput,
+    as the reference prints it for a session without retention."""
+    print(f"{mode}: {snap.n_docs} docs ingested, "
+          f"{snap.num_clusters} clusters, "
+          f"{snap.num_duplicates} duplicates, "
+          f"{snap.stats.pairs_evaluated} pairs verified "
+          f"({snap.stats.pairs_excluded} excluded) in "
+          f"{snap.stats.verify_batches} batches "
+          f"({snap.stats.verify_pairs_per_second:.0f} pairs/s)"
+          f"{extra}, {seconds:.2f}s total")
+
+
+def run_query_demo(sess, notes, n: int):
+    """Read-path demo: re-query ``n`` ingested notes and one novel note.
+
+    Stands up a ``DedupQueryService`` over the warm session and prints
+    one summary line.  Queries never mutate the session.
+    """
+    from repro_torch.serving.dedup_service import DedupQueryService
+
+    view = sess.view()
+    svc = DedupQueryService(sess)
+    n = min(n, len(notes))
+    novel = "entirely unrelated query text " * 12
+    t0 = time.perf_counter()
+    results = svc.query(list(notes[:n]) + [novel])
+    dt = time.perf_counter() - t0
+    hits = sum(r.is_duplicate for r in results[:n])
+    best = max((r.best_sim for r in results[:n]), default=0.0)
+    print(f"query[view v{view.version}]: {hits}/{n} re-queried notes "
+          f"matched their clusters (best sim {best:.2f}), novel note "
+          f"{'came back novel' if results[-1].novel else 'MATCHED (!)'}"
+          f", {n + 1} queries in {dt * 1e3:.1f} ms")
+
+
+_NOT_PORTED = {
+    "streaming": "--streaming (the out-of-core two-phase mode) is not "
+                 "ported yet: ROADMAP.md queue 1 item 2",
+    "sharded": "--sharded is not ported yet: ROADMAP.md queue 1 item 4",
+    "retain_budget": "--retain-budget other than 'none' is not ported "
+                     "yet: ROADMAP.md queue 1 item 2",
+    "refine_every": "--refine-every is not ported yet: ROADMAP.md queue 1 "
+                    "item 2",
+    "store": "--store sqlite is not ported yet: ROADMAP.md queue 1 item 2",
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--notes", type=int, default=500)
+    ap.add_argument("--dups", type=int, default=300)
+    ap.add_argument("--edge-threshold", type=float, default=0.75)
+    ap.add_argument("--tree-threshold", type=float, default=0.40)
+    ap.add_argument("--use-kernels", action="store_true",
+                    help="staged signatures through K3 (n-gram hashes) and "
+                         "K4 (minhash); the auto backend becomes kernel")
+    ap.add_argument("--fused-ingest", action="store_true",
+                    help="signatures and bands in one pass of K1")
+    ap.add_argument("--byte-ingest", action="store_true",
+                    help="raw UTF-8 bytes to bands on the device (K6, "
+                         "compaction, K1; no stemming; implies --estimate)")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "numpy", "torch", "kernel"),
+                    help="estimate-mode verification backend")
+    ap.add_argument("--batch", default="run", choices=("run", "band"),
+                    help="engine batch granularity (band = max throughput)")
+    ap.add_argument("--estimate", action="store_true",
+                    help="signature-estimate verification (vs exact)")
+    ap.add_argument("--device", default="cuda",
+                    help="where signatures, bands and the device verify "
+                         "backends run (cuda, or cpu for the plain "
+                         "PyTorch versions of the kernels)")
+    ap.add_argument("--steps", type=int, default=1,
+                    help="split the corpus into N chunks and ingest them "
+                         "incrementally through one DedupSession")
+    ap.add_argument("--query", type=int, default=0, metavar="N",
+                    help="after ingest, stand up a DedupQueryService over "
+                         "the warm session and re-query N ingested notes "
+                         "plus one novel note")
+    ap.add_argument("--streaming", action="store_true",
+                    help="not ported yet (ROADMAP.md queue 1 item 2)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="not ported yet (ROADMAP.md queue 1 item 4)")
+    ap.add_argument("--retain-budget", default="none",
+                    choices=("none", "small", "medium", "unlimited"),
+                    help="only 'none' is ported (ROADMAP.md queue 1 item 2)")
+    ap.add_argument("--refine-every", type=int, default=0,
+                    help="only 0 is ported (ROADMAP.md queue 1 item 2)")
+    ap.add_argument("--store", default=None, choices=("memory", "sqlite"),
+                    help="band-store tier; only memory is ported (ROADMAP.md "
+                         "queue 1 item 2).  Default: $REPRO_STORE_BACKEND "
+                         "or memory")
+    args = ap.parse_args(argv)
+    for flag, given in (("streaming", args.streaming),
+                        ("sharded", args.sharded),
+                        ("retain_budget", args.retain_budget != "none"),
+                        ("refine_every", args.refine_every != 0),
+                        ("store", args.store == "sqlite")):
+        if given:
+            ap.error(_NOT_PORTED[flag])
+
+    import numpy as np
+
+    from repro_torch.core import DedupConfig, DedupSession
+    from repro_torch.data import inject_near_duplicates, make_i2b2_like
+
+    notes = make_i2b2_like(args.notes)
+    notes, _ = inject_near_duplicates(notes, args.dups)
+    print(f"corpus: {len(notes)} notes ({args.dups} injected near-dups), "
+          f"{args.steps} ingest step(s)")
+    bounds = np.linspace(0, len(notes), max(1, args.steps) + 1).astype(int)
+    chunks = [notes[a:b] for a, b in zip(bounds, bounds[1:])]
+    cfg = DedupConfig(
+        edge_threshold=args.edge_threshold,
+        tree_threshold=args.tree_threshold,
+        use_kernels=args.use_kernels,
+        fused_ingest=args.fused_ingest,
+        byte_ingest=args.byte_ingest,
+        exact_verification=not (args.estimate or args.byte_ingest),
+        verify_backend=args.backend,
+        verify_batch=args.batch,
+        # None falls back to the field default ($REPRO_STORE_BACKEND).
+        **({"store": args.store} if args.store else {}))
+    sess = DedupSession(cfg, backend="host", device=args.device)
+    t0 = time.perf_counter()
+    for chunk in chunks:
+        snap = sess.ingest(chunk)
+    dt = time.perf_counter() - t0
+    report_session(f"host[{args.steps} step(s)]", snap, dt)
+    if args.query:
+        run_query_demo(sess, notes, args.query)
+
+
+if __name__ == "__main__":
+    main()

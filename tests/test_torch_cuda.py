@@ -34,7 +34,8 @@ from repro_torch.kernels import flash_attention as k8
 from repro_torch.kernels import sigjaccard as k2
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models import lm
-from repro_torch.serving import ServeEngine
+from repro_torch.serving import DedupQueryService, ServeEngine
+from repro_torch.core.session import DedupSession
 
 pytestmark = pytest.mark.cuda
 
@@ -584,6 +585,33 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         k8.flash_attention(q.half(), k.half(), v.half())
     assert k8.launches == 0
+
+
+@pytest.mark.parametrize("byte_ingest", [False, True])
+def test_kernel_session_and_query_service_on_card_match_cpu(cuda,
+                                                            byte_ingest):
+    """A 3-chunk ``kernel`` session (K1 or K6 -> K1, and K2) and a
+    ``kernel`` query service on the card equal the same run on the CPU."""
+    notes, _ = inject_near_duplicates(make_i2b2_like(60, seed=3), 40, seed=4)
+    queries = notes[::3] + make_i2b2_like(8, seed=9)
+    cfg = DedupConfig(fused_ingest=True, byte_ingest=byte_ingest,
+                      exact_verification=False, verify_backend="kernel",
+                      verify_batch="band")
+    out = {}
+    for device in ("cpu", "cuda"):
+        k1.launches = k2.launches = k6.launches = 0
+        sess = DedupSession(cfg, device=device)
+        for chunk in np.array_split(np.arange(len(notes)), 3):
+            snap = sess.ingest([notes[i] for i in chunk])
+        svc = DedupQueryService(sess, backend="kernel")
+        results = svc.query(queries)
+        out[device] = (snap.labels.tolist(), snap.pairs,
+                       sess.signatures.tolist(), results)
+        launched = (k1.launches, k2.launches, k6.launches)
+    assert out["cuda"] == out["cpu"]
+    assert launched[0] == 4 and launched[1] > 0  # 3 chunks + 1 query batch
+    assert launched[2] == (4 if byte_ingest else 0)
+    assert all(r.best_sim == 1.0 for r in out["cuda"][3][:len(notes[::3])])
 
 
 def test_serve_batch_with_flash_on_card_matches_cpu(cuda):

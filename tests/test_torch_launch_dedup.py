@@ -1,0 +1,48 @@
+"""The port's dedup CLI (``repro_torch.launch.dedup``) against the reference's.
+
+Both run in process on the same flags (the port with ``--device cpu``);
+their report lines must agree in every count.  The flags of later slices
+exit with a message naming their ROADMAP.md queue item.
+"""
+import re
+
+import pytest
+
+import repro.launch.dedup as ref_dedup
+from repro_torch.launch import dedup
+
+# Wall times and rates differ between runs and packages.
+_TIMES = re.compile(r"\(\d+ pairs/s\)|[\d.]+s total|in [\d.]+ ms")
+
+
+def _report(main, argv, capsys):
+    main(argv)
+    return [_TIMES.sub("", ln) for ln in capsys.readouterr().out.splitlines()]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--estimate", "--backend", "kernel", "--fused-ingest"],
+    ["--batch", "band"],
+])
+def test_report_counts_match_reference(flags, capsys):
+    common = ["--notes", "40", "--dups", "25", "--steps", "2", "--query", "4"]
+    got = _report(dedup.main, common + flags + ["--device", "cpu"], capsys)
+    ref_flags = [{"kernel": "numpy"}.get(f, f) for f in flags]
+    want = _report(ref_dedup.main, common + ref_flags, capsys)
+    assert got == want
+    assert got[1].startswith("host[2 step(s)]: 65 docs ingested")
+    assert got[2].startswith("query[view v1]: 4/4 re-queried notes matched")
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--streaming"], "item 2"),
+    (["--sharded"], "item 4"),
+    (["--retain-budget", "small"], "item 2"),
+    (["--refine-every", "2"], "item 2"),
+    (["--store", "sqlite"], "item 2"),
+])
+def test_later_slices_exit_with_their_queue_item(argv, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        dedup.main(argv + ["--device", "cpu"])
+    assert exc.value.code != 0
+    assert f"ROADMAP.md queue 1 {item}" in capsys.readouterr().err
