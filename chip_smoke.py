@@ -50,6 +50,21 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   searchsorted probe, index build included, on H3's traffic, on every
   ingested note and on the CLI's 65 queries; and the dedup CLI,
   ``python -m repro_torch.launch.dedup``, run as a user runs it (H4).
+* Phase R, bounded retained state on phase H's notes, config and
+  chunks: R1 under an LRU window of 1,024 (labels and (a, b, sim) list
+  equal H1's, rows evicted, retained rows, representatives, no
+  filter-only hits; 64 evicted docs queried through a ``kernel``
+  ``DedupQueryService`` answer with their cluster through a retained
+  doc); R2 under ``RetentionPolicy.preset("small", refine_every=2)``
+  (keys compacted into Bloom filters, two refines, each refine's K5 fold
+  equal to ``core.lsh.band_values`` on the same rows and each merge's sim
+  equal to K2's plain counts / M and above the edge threshold, a query
+  batch finding compacted keys without touching the session's count);
+  R3 2,560 notes and 512 of their near-duplicates under R2's policy on
+  the card and on the CPU, equal field by field, with rows evicted and
+  keys compacted; R4 the dedup CLI with ``--retain-budget small
+  --refine-every 2``.  K1, K2 and K5 launches are counted per run, and
+  K5 is timed at the last refine's representative count.
 * Phase S, the sharded step (``core.dist_lsh``) on the card over an
   NCCL process group of one rank, on phase A's packed matrix: stage 2
   on the host merge with K2, then on the device with K7 (masked pair
@@ -173,8 +188,8 @@ def main() -> int:
     from repro_torch.data import inject_near_duplicates, make_i2b2_like
 
     t0 = time.perf_counter()
-    notes, _ = inject_near_duplicates(make_i2b2_like(PHASE_A_NOTES, seed=0),
-                                      PHASE_A_DUPS, seed=1)
+    notes, prov = inject_near_duplicates(
+        make_i2b2_like(PHASE_A_NOTES, seed=0), PHASE_A_DUPS, seed=1)
     emit(corpus={"notes": len(notes), "seconds": time.perf_counter() - t0})
     ctx, k1_line, k2_line = phase_a(torch, clock_hz, notes)
     k6_line = phase_a2(torch, clock_hz, notes, ctx)
@@ -186,6 +201,14 @@ def main() -> int:
     for line in (k1_line, k2_line, k6_line):
         line["launches_phase_h"] = {path: counts[line["name"]]
                                     for path, counts in h_launches.items()}
+    t0 = time.perf_counter()
+    r_launches, k5_refine = phase_r(torch, clock_hz, notes, prov, ctx)
+    emit(phase_r={"seconds": time.perf_counter() - t0,
+                  "launches": r_launches})
+    for line in (k1_line, k2_line, k5_line):
+        line["launches_phase_r"] = {path: counts[line["name"]]
+                                    for path, counts in r_launches.items()}
+    k5_line["refine"] = k5_refine
     import torch.distributed as dist
 
     # One NCCL group of one rank: the sharded step's collectives run on
@@ -1122,7 +1145,8 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
     k5_line = {"name": "band_values", **common,
                "source": "src/repro_torch/kernels/csrc/bandfold.cu",
                "replaces": "src/repro/kernels/bandfold.py:41",
-               "path": "kernels.ops entry point",
+               "path": "kernels.ops entry point (phase A3); "
+                       "DedupSession.refine (phase R2)",
                "launches": ops_launches["band_values"], "max_abs_err": k5_err,
                "ms": times["k5"], "plain_ms": times["k5_plain"],
                "shape": {"D": D, "M": M, "r": r}, **k5_bound(D, M, r, clock_hz)}
@@ -1383,6 +1407,11 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
     sess, snap, h1 = session_run(torch, cfg, notes, ctx["res"], device,
                                  counters)
     launches["h1_session"] = h1["launches"]
+    v = sess.verifier
+    ctx["h1"] = {"labels": snap.labels, "pairs": snap.pairs, "summary": h1,
+                 "n_live_rows": v.n_live_rows,
+                 "device_buffer_rows": len(v._dev),
+                 "device_buffer_bytes": v._dev.numel() * 4}
     check(h1["launches"]["fused_ingest"] == H_CHUNKS,
           "K1 launched once a chunk in the session")
     check(h1["launches"]["pair_counts"] > 0, "K2 launched in the session")
@@ -1464,6 +1493,298 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
     emit(phase_h4={"argv": argv[1:], "seconds": time.perf_counter() - t0,
                    "report": proc.stdout.splitlines()})
     return launches
+
+
+# -- phase R: bounded retained state and refine ------------------------------------
+
+R1_WINDOW, R_EVICTED_QUERIES, R_FILTER_QUERIES = 1024, 64, 256
+R3_SOURCES, R3_DUPS = 2560, 512
+
+
+def r3_notes(notes: list[str], prov: list) -> list[str]:
+    """R3's corpus: the first ``R3_SOURCES`` notes, then the injected
+    near-duplicates of ``R3_DUPS`` distinct ones among them, in
+    injection order.  More notes than R2's 2,048 keys a band, so keys
+    are compacted; the duplicates land in the last chunk, so unions
+    depose docs, the sweep evicts them and the second refine re-bands
+    the roots."""
+    dups, seen = [], set()
+    for dup, src, _ in prov:
+        if src < R3_SOURCES and src not in seen:
+            seen.add(src)
+            dups.append(dup)
+    check(len(dups) >= R3_DUPS,
+          f"R3 found {len(dups)} near-duplicates of its sources")
+    return notes[:R3_SOURCES] + [notes[d] for d in dups[:R3_DUPS]]
+
+
+def retention_run(torch, cfg, notes, policy, device: str, counters: dict,
+                  setup=None) -> tuple:
+    """One ``DedupSession`` under ``policy`` over ``notes`` in
+    ``H_CHUNKS`` chunks (``ingest_stream``), each step timed on the host
+    clock after a synchronize.  ``counters`` maps names to kernel
+    modules; their launches are set to 0 before the run and returned
+    after it.  ``setup(session)`` runs before the first chunk."""
+    from repro_torch.core.session import DedupSession
+
+    sess = DedupSession(cfg, retention=policy, device=device)
+    if setup is not None:
+        setup(sess)
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    size = -(-len(notes) // H_CHUNKS)
+    chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
+    steps, refines = [], 0
+    t0 = time.perf_counter()
+    for snap in sess.ingest_stream(chunks):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        t, v = sess.stage_timings, sess.verifier
+        step = {"seconds": now - t0, "merge_s": t["merge_s"],
+                "cross_step_edges": t["cross_step_edges"],
+                "cross_step_s": t["cross_step_s"], "sweep_s": t["sweep_s"],
+                "evicted": snap.evicted, "n_live_rows": v.n_live_rows,
+                "rows": v._n_rows,
+                "pairs_evaluated": snap.stats.pairs_evaluated}
+        if v._dev is not None:
+            step.update(device_buffer_rows=len(v._dev),
+                        device_buffer_bytes=v._dev.numel() * 4)
+        if sess.refines_run > refines:
+            refines = sess.refines_run
+            step.update({k: t[k] for k in ("refine_s", "refine_band_s",
+                                           "refine_pairs", "refine_merges")})
+        steps.append(step)
+        t0 = now
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    summary = {"chunks": len(chunks), "steps": steps,
+               "ingest_s": sum(x["seconds"] for x in steps),
+               "pairs_evaluated": snap.stats.pairs_evaluated,
+               "evicted": snap.evicted, "retained_rows": snap.retained_rows,
+               "filter_only_hits": snap.filter_only_hits,
+               "refines_run": sess.refines_run,
+               "refine_merges": snap.refine_merges,
+               "band_index": sess.band_index.stats(), "launches": launches}
+    return sess, snap, summary
+
+
+def traced_refine(torch, sess, record: list) -> None:
+    """Wrap ``sess.refine`` so each round checks itself: the K5 fold of
+    the representatives' rows equals ``core.lsh.band_values`` on the same
+    device rows, and every merge's sim equals K2's plain counts / M on
+    the two roots' rows (read before the round's sweep frees them) and
+    clears ``edge_threshold``.  Appends one summary per round."""
+    import numpy as np
+
+    from repro_torch.core import lsh
+    from repro_torch.kernels import bandfold as k5
+    from repro_torch.kernels import sigjaccard as k2
+
+    inner, launch = sess.refine, k5.band_values
+
+    def refine():
+        folds, merged = [], []
+        uf, v = sess.uf, sess.verifier
+        union = uf.union
+
+        def fold(sig, r):
+            out = launch(sig, r)
+            folds.append({"reps": len(sig),
+                          "equal": bool(torch.equal(out, lsh.band_values(sig, r))),
+                          "rows": sig})
+            return out
+
+        def traced_union(x, y, sim):
+            ok = union(x, y, sim)
+            if ok:
+                merged.append((sim, *v._slot_index([x, y]).tolist()))
+            return ok
+
+        uf.union, k5.band_values = traced_union, fold
+        try:
+            snap = inner()
+        finally:
+            del uf.union
+            k5.band_values = launch
+        check(all(f["equal"] for f in folds),
+              "refine: K5 fold == core.lsh.band_values on the same rows")
+        if merged:
+            sig = v._device_signatures()
+            slots = torch.tensor([m[1:] for m in merged], device=sig.device)
+            want = (k2.pair_counts_plain(sig, slots[:, 0], slots[:, 1])
+                    .cpu().numpy().astype(np.float32) / np.float32(sig.shape[1]))
+            got = np.array([m[0] for m in merged], dtype=np.float32)
+            check(np.array_equal(got, want),
+                  "refine merge sims == K2 plain counts / M")
+            check(bool((got > sess.config.edge_threshold).all()),
+                  "refine merges clear edge_threshold")
+        record.append({"reps": folds[0]["reps"] if folds else 0,
+                       "k5_folds": len(folds), "merges": len(merged),
+                       "pairs": sess.stage_timings["refine_pairs"],
+                       "seconds": sess.stage_timings["refine_s"],
+                       "band_s": sess.stage_timings["refine_band_s"],
+                       "rows": folds[-1]["rows"] if folds else None})
+        return snap
+
+    sess.refine = refine
+
+
+def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
+            ctx: dict, device: str = "cuda") -> tuple[dict, dict]:
+    """Bounded retained state and the second clustering round on phase A's
+    notes and config, H1's 4 chunks.  R1: an LRU window of 1,024, lossless
+    (labels and pairs equal H1's), then 64 evicted docs queried through a
+    ``kernel`` ``DedupQueryService``.  R2: the ``small`` preset refining
+    every 2 steps (K5 once a refine, each round checked by
+    ``traced_refine``), and a query batch that finds compacted keys.  R3:
+    ``r3_notes`` (2,560 notes and 512 of their near-duplicates, ``prov``
+    the corpus's provenance) under R2's policy, on the card and on the
+    CPU, equal field by field, with rows evicted and keys compacted.  R4: the CLI with ``--retain-budget small
+    --refine-every 2``.  Returns each path's K1, K2 and K5 launches, and
+    K5's time at the last refine's representative count."""
+    import numpy as np
+
+    from repro_torch.core import RetentionPolicy
+    from repro_torch.core.pipeline import DedupConfig
+    from repro_torch.kernels import bandfold as k5
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+    from repro_torch.serving import DedupQueryService
+
+    counters = {"fused_ingest": (k1, "launches"),
+                "pair_counts": (k2, "launches"),
+                "band_values": (k5, "launches")}
+    launches = {}
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel",
+                      verify_batch="band")
+    h1 = ctx.pop("h1")
+
+    # R1: lossless eviction against H1.
+    sess, snap, r1 = retention_run(torch, cfg, notes,
+                                   RetentionPolicy(lru_window=R1_WINDOW),
+                                   device, counters)
+    launches["r1_session"] = r1["launches"]
+    check(np.array_equal(snap.labels, h1["labels"]),
+          "R1 labels == H1 labels")
+    check(snap.pairs == h1["pairs"], "R1 (a, b, sim) list == H1's")
+    check(snap.evicted > 0, "R1 evicted rows")
+    check(snap.retained_rows == snap.n_docs - snap.evicted,
+          "R1 retained rows == docs - evicted")
+    check(snap.representatives.tolist()
+          == sorted({int(r) for r in snap.labels}),
+          "R1 representatives == the sorted roots")
+    check(snap.filter_only_hits == 0, "R1 has no filter-only hits")
+    check(r1["launches"]["fused_ingest"] == H_CHUNKS
+          and r1["launches"]["pair_counts"] > 0,
+          "R1: K1 once a chunk, and K2")
+    view = sess.view()
+    evicted = [d for d in range(snap.n_docs) if d not in view.slot_of]
+    picks = evicted[:: max(1, len(evicted) // R_EVICTED_QUERIES)]
+    picks = picks[:R_EVICTED_QUERIES]
+    t0 = time.perf_counter()
+    got = DedupQueryService(sess, backend="kernel").query(
+        [notes[d] for d in picks])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    check(all(r.is_duplicate and r.cluster_root == int(snap.labels[d])
+              and r.matched_doc in view.slot_of
+              for d, r in zip(picks, got)),
+          "R1: evicted docs query to their cluster through a retained doc")
+    r1.update(evicted_queries=len(picks), evicted_query_s=query_s,
+              h1={k: h1[k] for k in ("n_live_rows", "device_buffer_rows",
+                                      "device_buffer_bytes")},
+              h1_steps=[{k: x[k] for k in ("seconds", "cross_step_edges",
+                                           "cross_step_s")}
+                        for x in h1["summary"]["steps"]],
+              h1_ingest_s=h1["summary"]["ingest_s"])
+    emit(phase_r1=r1)
+    del sess, snap, view, h1
+
+    # R2: the small preset, refining every 2 steps.
+    policy = RetentionPolicy.preset("small", refine_every=2)
+    rounds: list = []
+    sess, snap, r2 = retention_run(
+        torch, cfg, notes, policy, device, counters,
+        setup=lambda s: traced_refine(torch, s, rounds))
+    launches["r2_session"] = r2["launches"]
+    check(sess.band_index.compacted_keys > 0, "R2 compacted band keys")
+    check(sess.refines_run == 2 and len(rounds) == 2, "R2 refined twice")
+    check(r2["launches"]["band_values"] == sum(r["k5_folds"] for r in rounds)
+          == 2, "R2: K5 once a refine")
+    before = sess.band_index.filter_only_hits
+    got = DedupQueryService(sess, backend="kernel").query(
+        notes[:R_FILTER_QUERIES])
+    check(sum(r.filter_only_hits for r in got) > 0,
+          "R2 queries hit compacted keys in the Bloom filters")
+    check(sess.band_index.filter_only_hits == before,
+          "R2 queries leave the session's filter-only count as it was")
+    rows = rounds[-1]["rows"]
+    r = cfg.rows_per_band
+    k5_refine = {"reps": len(rows),
+                 "ms": cuda_ms(torch, lambda: k5.band_values(rows, r), 20),
+                 "plain_ms": cuda_ms(torch,
+                                     lambda: k5.band_values_plain(rows, r), 5),
+                 **k5_bound(len(rows), rows.shape[1], r, clock_hz)}
+    r2.update(rounds=[{k: x[k] for k in x if k != "rows"} for x in rounds],
+              filter_queries=len(got),
+              query_filter_only_hits=sum(x.filter_only_hits for x in got),
+              k5_refine=k5_refine)
+    emit(phase_r2=r2)
+    del sess, snap, rounds, rows
+
+    # R3: R2's policy on notes and their near-duplicates, card and CPU.
+    out = {}
+    notes3 = r3_notes(notes, prov)
+    for dev in (device, "cpu"):
+        s3, snap3, summary = retention_run(torch, cfg, notes3, policy, dev,
+                                           counters)
+        out[dev] = {"labels": snap3.labels.tolist(), "pairs": snap3.pairs,
+                    "evicted": snap3.evicted,
+                    "retained_rows": snap3.retained_rows,
+                    "representatives": snap3.representatives.tolist(),
+                    "filter_only_hits": snap3.filter_only_hits,
+                    "refine_merges": snap3.refine_merges,
+                    "band_index": s3.band_index.stats(),
+                    "refines_run": s3.refines_run,
+                    "seconds": summary["ingest_s"]}
+        if dev == device:
+            launches["r3_session"] = summary["launches"]
+    for field in out["cpu"]:
+        if field != "seconds":
+            check(out[device][field] == out["cpu"][field],
+                  f"R3 {field}: card == CPU")
+    check(out[device]["evicted"] > 0, "R3 evicted rows")
+    check(out[device]["band_index"]["compacted_keys"] > 0,
+          "R3 compacted band keys")
+    check(out[device]["refines_run"] == 2, "R3 refined twice")
+    emit(phase_r3={"notes": len(notes3), "card_s": out[device]["seconds"],
+                   "cpu_s": out["cpu"]["seconds"],
+                   "evicted": out["cpu"]["evicted"],
+                   "band_index": out["cpu"]["band_index"],
+                   "refine_merges": out["cpu"]["refine_merges"],
+                   "launches": launches["r3_session"]})
+
+    # R4: H4's CLI run under the small budget, refining every 2 steps.
+    argv = [sys.executable, "-m", "repro_torch.launch.dedup", "--notes",
+            "2000", "--dups", "1000", "--steps", "4", "--fused-ingest",
+            "--estimate", "--backend", "kernel", "--query", "64",
+            "--retain-budget", "small", "--refine-every", "2",
+            "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=600)
+    report = proc.stdout.splitlines()
+    check(proc.returncode == 0,
+          f"dedup CLI with retention exits 0: {proc.stderr[-2000:]}")
+    check(any(ln.startswith("host[4 step(s)]: ") for ln in report),
+          "dedup CLI with retention prints its report line")
+    emit(phase_r4={"argv": argv[1:], "seconds": time.perf_counter() - t0,
+                   "report": report})
+    return launches, k5_refine
 
 
 # -- phase S: the sharded step ----------------------------------------------------

@@ -30,6 +30,11 @@ from repro_torch.core.engine import (
 from repro_torch.core.lsh import LSHParams, candidate_probability
 from repro_torch.core.pipeline import DedupConfig, DedupPipeline, DedupResult
 from repro_torch.core.query import QueryResult, query_view
+from repro_torch.core.retention import (
+    BandBloomFilter,
+    RetentionManager,
+    RetentionPolicy,
+)
 from repro_torch.core.session import (
     BandIndex,
     ClusterSnapshot,
@@ -53,6 +58,7 @@ __all__ = [
     "DistLSHConfig", "ShardedClusterResult", "StepFeed",
     "cluster_step_output", "feed_step_groups", "make_dedup_step",
     "make_streamed_dedup_step", "docs_mesh",
+    "BandBloomFilter", "RetentionManager", "RetentionPolicy",
     "BandIndex", "ClusterSnapshot", "DedupSession", "DedupQueryService",
     "DocIdAllocator", "SessionView", "QueryResult", "query_view",
     "BandMatrixSource", "CandidateSource", "EdgeStreamSource",

@@ -44,8 +44,8 @@ class QueryResult:
     edge_threshold``); ``cluster_root`` and ``matched_doc`` are ``None``
     for novel documents.  ``candidates`` keeps every verified (retained
     doc, sim) pair, best first.  ``filter_only_hits`` counts band keys
-    found only in a compacted Bloom filter (always 0 until the bounded
-    index is ported).
+    found only in a band's Bloom filter of compacted keys (seen before,
+    by a doc the index can no longer name).
     """
 
     is_duplicate: bool
@@ -67,14 +67,15 @@ def probe_candidates(
     """Band-probe (Q, b, 2) uint32 query band values against a view.
 
     Returns per-query sorted unique candidate doc ids and per-query
-    Bloom-only hit counts (all 0: the port's band index compacts no key
-    into a Bloom filter until its bounded form is ported).  A pure read
-    of the view's frozen bucket maps: nothing is inserted and no recency
-    moves.  Every batch walks the host dicts, one ``get`` a (query,
-    band): a device searchsorted probe lost to it at every batch size
-    measured on the H100 (``chip_smoke.py`` phase H3, ``PERF.md``):
-    each of its hits still needs the dict's bucket, and its index is
-    rebuilt for every published view.
+    Bloom-only hit counts: a key missing from a band's map that the
+    band's filter holds counts one for its query.  A pure read of the
+    view's frozen bucket maps and filters: nothing is inserted, no
+    recency moves, and the session's own counter is untouched.  Every
+    batch walks the host dicts, one ``get`` a (query, band): a device
+    searchsorted probe lost to it at every batch size measured on the
+    H100 (``chip_smoke.py`` phase H3, ``PERF.md``): each of its hits
+    still needs the dict's bucket, and its index is rebuilt for every
+    published view.  A band's filter is read for the whole batch at once.
     """
     bands = np.asarray(bands)
     if bands.ndim != 3 or bands.shape[1] != view.num_bands:
@@ -84,12 +85,18 @@ def probe_candidates(
         raise TypeError(f"expected uint32 band values, got {bands.dtype}")
     q = len(bands)
     cands: list[set[int]] = [set() for _ in range(q)]
+    filter_hits = [0] * q
     for j, m in enumerate(view.band_maps):
+        flt = view.band_filters[j]
+        in_filter = flt.contains_keys(bands[:, j, :]) if flt is not None \
+            else None
         for i, key in enumerate(bands[:, j, :].tolist()):
             olds = m.get(tuple(key))
             if olds is not None:
                 cands[i].update(olds)
-    return [np.array(sorted(s), dtype=np.int64) for s in cands], [0] * q
+            elif in_filter is not None and in_filter[i]:
+                filter_hits[i] += 1
+    return [np.array(sorted(s), dtype=np.int64) for s in cands], filter_hits
 
 
 class ViewVerifier:

@@ -22,27 +22,45 @@ The read path publishes an immutable ``SessionView``
 (``DedupSession.view``), which ``core.query`` and
 ``serving.dedup_service.DedupQueryService`` serve.
 
+A ``retention.RetentionPolicy`` bounds the retained state: each merge
+is followed by a sweep that evicts the rows of docs that lost roothood
+(outside an LRU window) and rewrites their band-index entries onto
+their roots, and the index compacts its oldest keys into per-band Bloom
+filters past a key budget.  ``refine`` is the paper's §10 second
+clustering round over the cluster representatives.
+
 The session's stages run on its ``device`` (``"cuda"`` unless told):
 signatures and bands through the ``DedupPipeline`` stages (K1, K3 and
-K4, or K6 with byte ingest), and the kernel verify backend through K2.
-Not ported yet, and raising ``NotImplementedError``: the streaming and
-sharded backends, retention policies, ``refine`` and ``over_store``
-(``ROADMAP.md`` queue 1, items 2 and 4).
+K4, or K6 with byte ingest), the kernel verify backend through K2, and
+``refine``'s re-band of the representatives through K5 when
+``config.use_kernels`` is on.  Not ported yet, and raising
+``NotImplementedError``: the streaming and sharded backends and
+``over_store`` (``ROADMAP.md`` queue 1, items 2 and 4).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field, replace
+from itertools import islice
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
-from repro_torch.core import minhash, shingle
+from repro_torch.core import lsh, minhash, shingle
 from repro_torch.core.candidates import BandMatrixSource, ShardedEdgeSource
-from repro_torch.core.engine import ClusterAccumulator, ClusterStats
+from repro_torch.core.engine import (
+    ClusterAccumulator,
+    ClusterStats,
+    merge_cluster_rounds,
+)
 from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
 from repro_torch.core.pipeline import DedupConfig
+from repro_torch.core.retention import (
+    BandBloomFilter,
+    RetentionManager,
+    RetentionPolicy,
+)
 from repro_torch.core.unionfind import ThresholdUnionFind
 from repro_torch.core.verify import (
     BatchVerifier,
@@ -51,6 +69,7 @@ from repro_torch.core.verify import (
     as_verifier,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels import bandfold
 
 BACKENDS = ("host", "streaming", "sharded")
 
@@ -98,25 +117,37 @@ class BandIndex:
     matrix owns those).  Keys are ``(hi, lo)`` Python ints of the uint32
     band lanes.
 
-    The bounded form (``key_budget`` with per-band Bloom filters,
-    ``track_entries`` and ``evict``) is not ported yet.
+    Bounded form: with ``track_entries`` the index keeps a per-doc map
+    of its (band, key) entries, so ``evict`` can rewrite an evicted
+    doc's entries onto its cluster root; ``key_budget`` caps the keys of
+    a band by compacting the least recently hit ones into the band's
+    ``BandBloomFilter``.  A later new key found in the filter counts one
+    ``filter_only_hits``: seen before, by a doc the index cannot name.
     """
 
     def __init__(self, num_bands: int, *, key_budget: int | None = None,
                  bloom_bits: int = 1 << 17, bloom_hashes: int = 4,
                  track_entries: bool = False):
-        if (key_budget is not None or track_entries
-                or (bloom_bits, bloom_hashes) != (1 << 17, 4)):
-            raise NotImplementedError(
-                f"BandIndex key budgets, Bloom filters and eviction {_ITEM2}")
         self._maps: list[dict[tuple[int, int], list[int]]] = [
             {} for _ in range(num_bands)]
+        self._key_budget = key_budget
+        self._bloom_bits = int(bloom_bits)
+        self._bloom_hashes = int(bloom_hashes)
+        self._filters: list[BandBloomFilter | None] = [None] * num_bands
+        self._entries: dict[int, list] | None = (
+            {} if track_entries else None)
         self.filter_only_hits = 0
         self.compacted_keys = 0
 
     @property
     def num_bands(self) -> int:
         return len(self._maps)
+
+    def _filter(self, j: int) -> BandBloomFilter:
+        if self._filters[j] is None:
+            self._filters[j] = BandBloomFilter(self._bloom_bits,
+                                               self._bloom_hashes)
+        return self._filters[j]
 
     def match_then_insert(self, bands: np.ndarray,
                           doc_id_base: int) -> np.ndarray:
@@ -128,9 +159,14 @@ class BandIndex:
         if bands.dtype != np.uint32:
             raise TypeError(f"expected uint32 band values, got {bands.dtype}")
         edges: list[tuple[int, int]] = []
+        entries = self._entries
         for j, m in enumerate(self._maps):
-            col = bands[:, j, :].tolist()
-            for i, (hi, lo) in enumerate(col):
+            # A band's filter changes only at its compaction, after the
+            # walk, so the walk's filter hits are read in one batch.
+            flt = self._filters[j]
+            in_filter = (flt.contains_keys(bands[:, j, :])
+                         if flt is not None else None)
+            for i, (hi, lo) in enumerate(bands[:, j, :].tolist()):
                 key = (hi, lo)
                 new_id = doc_id_base + i
                 olds = m.get(key)
@@ -138,34 +174,75 @@ class BandIndex:
                     edges.extend((old, new_id) for old in olds
                                  if old < doc_id_base)
                     olds.append(new_id)
-                    # Refresh recency (the key order a key budget would
-                    # compact by), as the reference does on every hit.
+                    # Refresh recency: compaction pops from the front of
+                    # the dict, so a key hit every chunk is never
+                    # compacted.
                     m[key] = m.pop(key)
                 else:
+                    if in_filter is not None and in_filter[i]:
+                        self.filter_only_hits += 1
                     m[key] = [new_id]
+                if entries is not None:
+                    entries.setdefault(new_id, []).append((j, key))
+            if self._key_budget is not None and len(m) > self._key_budget:
+                old_keys = list(islice(m, len(m) - self._key_budget))
+                for k in old_keys:
+                    del m[k]
+                self._filter(j).add_keys(np.array(old_keys, dtype=np.uint32))
+                self.compacted_keys += len(old_keys)
         if not edges:
             return np.zeros((0, 2), dtype=np.int64)
         return np.array(edges, dtype=np.int64)
 
+    def evict(self, doc_ids, root_of) -> None:
+        """Rewrite evicted docs' bucket entries onto their cluster root.
+
+        ``root_of`` maps a doc id to its current union-find root.  The
+        root inherits the evicted doc's (band, key) entries (moved in the
+        per-doc map, so a later eviction of a deposed root still works)
+        and enters each bucket at most once.
+        """
+        if self._entries is None:
+            raise ValueError(
+                "BandIndex was built without track_entries; eviction "
+                "needs the per-doc reverse map")
+        for d in doc_ids:
+            d = int(d)
+            for j, key in self._entries.pop(d, ()):
+                olds = self._maps[j].get(key)
+                if olds is None:
+                    continue               # key already compacted
+                try:
+                    olds.remove(d)
+                except ValueError:
+                    continue               # key was compacted and seen again
+                r = int(root_of(d))
+                if r not in olds:
+                    olds.append(r)
+                    self._entries.setdefault(r, []).append((j, key))
+
     def export_maps(self) -> tuple:
         """Per-band ``{(hi, lo): (doc ids,)}`` copies for a ``SessionView``,
-        bucket lists frozen to tuples.  A pure read."""
+        bucket lists frozen to tuples.  A pure read: no recency moves."""
         return tuple({k: tuple(v) for k, v in m.items()} for m in self._maps)
 
     def export_filters(self) -> tuple:
-        """Per-band Bloom filters for a ``SessionView``: ``None`` for every
-        band, as nothing is compacted without a key budget."""
-        return (None,) * self.num_bands
+        """Per-band Bloom filter copies for a ``SessionView`` (``None`` for
+        a band that compacted nothing)."""
+        return tuple(f.copy() if f is not None else None
+                     for f in self._filters)
 
     def stats(self) -> dict:
         """Memory and recall accounting."""
         return {
             "n_keys": sum(len(m) for m in self._maps),
             "n_entries": sum(len(v) for m in self._maps for v in m.values()),
-            "n_docs_tracked": 0,
+            "n_docs_tracked": (len(self._entries)
+                               if self._entries is not None else 0),
             "compacted_keys": self.compacted_keys,
             "filter_only_hits": self.filter_only_hits,
-            "bloom_bytes": 0,
+            "bloom_bytes": sum(f.memory_bytes for f in self._filters
+                               if f is not None),
         }
 
 
@@ -175,15 +252,19 @@ class ClusterSnapshot:
 
     ``labels`` is a read-only copy, ``stats`` a counter copy and
     ``pairs`` a fresh list, so later ingests never change a snapshot.
-    The reference's sharded, retention and refine counters come with
-    those parts of the session.
+    The reference's sharded counters come with the sharded session.
     """
 
     n_docs: int                 # docs ingested so far (id upper bound)
     labels: np.ndarray          # (n_docs,) cluster root per doc (frozen)
     stats: ClusterStats         # cumulative engine counters (a copy)
     pairs: list                 # every evaluated (a, b, sim) so far (a copy)
+    # Retained state (sessions with a retention policy):
     retained_rows: int = 0      # live verifier rows (== n_docs unevicted)
+    evicted: int = 0            # rows released by the retention policy
+    filter_only_hits: int = 0   # band hits whose partner was compacted
+    refine_merges: int = 0      # second-round merges so far
+    representatives: np.ndarray | None = None  # retained roots (sorted)
 
     @property
     def num_clusters(self) -> int:
@@ -233,9 +314,11 @@ class SessionView:
     rewritten (the retained signature or token rows), so a query holding
     a view cannot race a later ingest.
 
-    ``device`` is the session's: the read path's device verify runs
-    there.  ``band_store`` (the disk tier) is always ``None``
-    until ``core.bandstore`` is ported.
+    In the eviction layout (a retention policy evicted a row) the rows
+    and the doc -> row map are copies taken at publication.  ``device``
+    is the session's: the read path's device verify runs there.
+    ``band_store`` (the disk tier) is always ``None`` until
+    ``core.bandstore`` is ported.
     """
 
     version: int                # monotone publication counter
@@ -245,7 +328,7 @@ class SessionView:
     rows_per_band: int
     labels: np.ndarray          # (n_docs,) cluster root per doc (frozen)
     band_maps: tuple            # per band: {(hi, lo): (doc ids,)}
-    band_filters: tuple         # per band: a Bloom filter or None
+    band_filters: tuple         # per band: BandBloomFilter | None
     signatures: np.ndarray      # retained rows (estimate sessions)
     slot_of: dict | None        # doc -> signature row (eviction layout)
     exact: ExactRowsView | None = None   # exact-verification sessions
@@ -289,6 +372,10 @@ class DedupSession:
     ``device`` (``"cuda"`` unless told; raises without a CUDA device
     unless ``"cpu"`` is passed) is where the pipeline stages and the
     device verify backends run.
+
+    ``retention`` (a ``RetentionPolicy``) bounds the retained rows and
+    band keys; ``refine`` runs the second clustering round, by hand or
+    every ``retention.refine_every`` steps.
     """
 
     def __init__(
@@ -298,7 +385,7 @@ class DedupSession:
         *,
         doc_id_base: int = 0,
         verifier: BatchVerifier | None = None,
-        retention=None,
+        retention: RetentionPolicy | None = None,
         device="cuda",
     ):
         if backend not in BACKENDS:
@@ -307,8 +394,6 @@ class DedupSession:
             raise NotImplementedError(f"the streaming backend {_ITEM2}")
         if backend == "sharded":
             raise NotImplementedError(f"the sharded backend {_ITEM4}")
-        if retention is not None:
-            raise NotImplementedError(f"retention policies {_ITEM2}")
         self.config = config or DedupConfig()
         self.backend = backend
         self.device = resolve_device(device)
@@ -321,9 +406,25 @@ class DedupSession:
             self.config.tree_threshold,
             use_disjoint_sets=self.config.use_disjoint_sets,
             batch=self.config.verify_batch)
-        self.band_index = BandIndex(num_bands=self.config.num_bands)
+        self.retention = (RetentionManager(retention)
+                          if retention is not None else None)
+        if self.retention is not None:
+            # Each union logs the root it deposed, so a sweep never scans
+            # every doc for lost roothood.
+            self.acc.uf.track_deposed = True
+        self.band_index = BandIndex(
+            num_bands=self.config.num_bands,
+            key_budget=(retention.band_key_budget
+                        if retention is not None else None),
+            bloom_bits=(retention.bloom_bits if retention is not None
+                        else 1 << 17),
+            bloom_hashes=(retention.bloom_hashes if retention is not None
+                          else 4),
+            track_entries=retention is not None)
         self.seeds = minhash.default_seeds(self.config.num_hashes)
         self.steps_ingested = 0
+        self.refine_merges = 0
+        self.refines_run = 0
         # Docs whose merge has completed; snapshots cover these.  With
         # ingest_stream's lookahead the allocator runs one chunk ahead.
         self.n_merged = int(doc_id_base)
@@ -331,7 +432,10 @@ class DedupSession:
         # Wall times and counts of the last merge and snapshot:
         # ``merge_s`` (retain, the chunk's band matrix, the cross-step
         # pass), ``cross_step_s`` (BandIndex.match_then_insert and the
-        # verify of its edges), ``cross_step_edges``, and the snapshot's
+        # verify of its edges), ``cross_step_edges``, the retention
+        # sweep's ``sweep_s``, the last refine's
+        # ``refine_s``, ``refine_band_s`` (re-band and bucket walk),
+        # ``refine_pairs`` and ``refine_merges``, and the snapshot's
         # ``labels_s`` and ``pairs_s``.
         self.stage_timings: dict[str, float] = {}
         # Read-path publication state (SessionView).
@@ -365,7 +469,9 @@ class DedupSession:
 
     @property
     def signatures(self) -> np.ndarray:
-        """The retained (D, M) uint32 signature matrix, row i == doc i.
+        """The retained (D, M) uint32 signature matrix, row i == doc i
+        until the retention policy evicts a row (``verifier.rows_for`` is
+        the eviction-aware accessor).
 
         Owned by the session's verifier; empty for exact-mode or
         external-verifier sessions, which do not verify by signatures.
@@ -393,14 +499,24 @@ class DedupSession:
             stats=replace(self.acc.stats),
             pairs=pairs,
             retained_rows=retained if retained is not None else self.n_docs,
+            evicted=(self.retention.n_evicted
+                     if self.retention is not None else 0),
+            filter_only_hits=self.band_index.filter_only_hits,
+            refine_merges=self.refine_merges,
+            representatives=(np.array(self.retention.representatives(),
+                                      dtype=np.int64)
+                             if self.retention is not None else None),
         )
 
     # -- read path (SessionView publication) ---------------------------------
 
     def _view_state_key(self) -> tuple:
         """Covers every mutation that can change a view's contents."""
-        return (self.steps_ingested, self.n_merged,
-                self.acc.stats.unions_done)
+        return (self.steps_ingested, self.n_merged, self.refines_run,
+                self.acc.stats.unions_done,
+                self.retention.n_evicted if self.retention is not None
+                else 0,
+                self.band_index.compacted_keys)
 
     def view(self) -> SessionView:
         """The current immutable read-path handle over this session.
@@ -470,6 +586,7 @@ class DedupSession:
         """Cluster one chunk of documents; returns a cumulative snapshot."""
         self._check_live()
         self._impl.merge(self._impl.dispatch(list(texts)))
+        self._post_merge()
         return self.snapshot()
 
     def ingest_tokens(self,
@@ -478,6 +595,7 @@ class DedupSession:
         self._check_live()
         self._impl.merge(self._impl.dispatch(list(token_lists),
                                              tokenized=True))
+        self._post_merge()
         return self.snapshot()
 
     def ingest_stream(
@@ -497,10 +615,12 @@ class DedupSession:
             nxt = self._impl.dispatch(list(chunk), tokenized=tokenized)
             if pending is not None:
                 self._impl.merge(pending)
+                self._post_merge()
                 yield self.snapshot()
             pending = nxt
         if pending is not None:
             self._impl.merge(pending)
+            self._post_merge()
             yield self.snapshot()
 
     def _merge_precomputed(self, token_lists, sig, bands) -> ClusterSnapshot:
@@ -520,8 +640,117 @@ class DedupSession:
         self._finalized = True
         return self.snapshot()
 
-    def refine(self):
-        raise NotImplementedError(f"DedupSession.refine {_ITEM2}")
+    # -- bounded retained state ----------------------------------------------
+
+    def _post_merge(self) -> None:
+        """Retention sweep and the refine cadence after a chunk merge."""
+        if self.retention is None:
+            return
+        t0 = time.perf_counter()
+        self.retention.sweep(self)
+        self.stage_timings["sweep_s"] = time.perf_counter() - t0
+        every = self.retention.policy.refine_every
+        if every and self.steps_ingested % every == 0:
+            self.refine()
+
+    def _release_rows(self, doc_ids) -> None:
+        """Evict docs' rows from the session verifier (the sweep's hook).
+        An external verifier without ``release_rows`` keeps its rows."""
+        v = self._verifier
+        if v is not None and hasattr(v, "release_rows"):
+            v.release_rows(doc_ids)
+
+    def _representatives(self) -> list[int]:
+        """Sorted current union-find roots.
+
+        Gap ids below the session's base (``doc_id_base`` sessions) are
+        left out: their verifier rows are blank, so re-banding them would
+        collide every gap with every other at a similarity of 1.0.
+        """
+        if self.retention is not None:
+            self.retention.sweep(self)   # roots in step with recent unions
+            return self.retention.representatives()
+        base = self.allocator.base
+        lab = self.uf.components()[: self.n_docs]
+        return sorted({int(r) for r in lab[base:]})
+
+    def _rep_band_pairs(self, reps: list[int],
+                        est: SignatureVerifier) -> np.ndarray:
+        """Re-band the representatives; return their collision pairs.
+
+        Band values are a function of the signature rows, so the reps'
+        collisions are the original LSH collisions restricted to the
+        root set.  The reps' rows are gathered by row index on the
+        verifier's device copy (or uploaded from its host copy, for the
+        numpy backend) and folded there: through K5 with
+        ``config.use_kernels``, else ``core.lsh.band_values``.  The
+        bucket walk is a host dict walk.
+        """
+        slots = est._slot_index(np.asarray(reps, dtype=np.int64))
+        if est._dev is not None:
+            dev = est._device_signatures()
+            rows = dev[torch.from_numpy(slots).to(dev.device)]
+        else:
+            rows = u32_from_numpy(est.signatures[slots], est.device)
+        fold = (bandfold.band_values if self.config.use_kernels
+                else lsh.band_values)
+        bands = u32_to_numpy(fold(rows, self.config.rows_per_band))
+        # Pairs (old, rep), each bucket's earlier reps before the new one,
+        # gathered as two flat columns.
+        first: list[int] = []
+        second: list[int] = []
+        for j in range(bands.shape[1]):
+            seen: dict[tuple[int, int], list[int]] = {}
+            for rep, key in zip(reps, map(tuple, bands[:, j, :].tolist())):
+                olds = seen.get(key)
+                if olds is None:
+                    seen[key] = [rep]
+                else:
+                    first.extend(olds)
+                    second.extend([rep] * len(olds))
+                    olds.append(rep)
+        return np.stack([np.array(first, dtype=np.int64),
+                         np.array(second, dtype=np.int64)], axis=1)
+
+    def refine(self) -> ClusterSnapshot:
+        """Incremental second clustering round (paper §10) over the
+        retained representatives.
+
+        Re-bands only the current cluster roots and drives their
+        collision pairs through ``engine.merge_cluster_rounds`` with the
+        accumulator's verified-sim cache: sims already verified are
+        served from it, and this round's become visible to later feeds.
+        Merges clusters whose representatives clear ``edge_threshold``.
+        Verifiers without signature rows (exact, callback) sweep every
+        representative pair instead.  Works with or without a retention
+        policy; with one, the rows of deposed roots are then evicted.
+        """
+        self._check_live()
+        t0 = time.perf_counter()
+        reps = self._representatives()
+        merges, n_pairs, band_s = 0, 0, 0.0
+        if len(reps) >= 2 and self._verifier is not None:
+            est = self._estimate_verifier()
+            cand = None
+            if isinstance(est, SignatureVerifier) and est.num_docs:
+                t1 = time.perf_counter()
+                cand = self._rep_band_pairs(reps, est)
+                band_s = time.perf_counter() - t1
+                n_pairs = len(cand)
+            merges = merge_cluster_rounds(
+                self.uf, est, self.config.edge_threshold,
+                roots=reps, candidate_pairs=cand,
+                sim_cache=self.acc.evaluated)
+        self.refine_merges += merges
+        self.refines_run += 1
+        if self.retention is not None and merges:
+            # Second-round unions deposed roots; evict their rows.
+            self.retention.sweep(self)
+        self.stage_timings.update(refine_s=time.perf_counter() - t0,
+                                  refine_band_s=band_s,
+                                  refine_pairs=n_pairs,
+                                  refine_merges=merges)
+        return self.snapshot()
 
     # -- backend plumbing ----------------------------------------------------
 

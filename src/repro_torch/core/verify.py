@@ -92,6 +92,71 @@ class CallbackVerifier(BatchVerifier):
             [self.fn(int(a), int(b)) for a, b in pairs], dtype=np.float32)
 
 
+class _SlotPool:
+    """The eviction layout of a verifier's row matrix.
+
+    ``slot_of`` maps each retained doc to its physical row (the surface a
+    ``SessionView`` copies); ``slot_arr`` holds the same map as an array
+    indexed by doc id, -1 for an evicted doc, so a batch of pairs maps to
+    rows in one gather; ``free`` lists the released rows, reused last
+    released first.
+    """
+
+    def __init__(self, n_rows: int):
+        self.slot_of: dict[int, int] = {i: i for i in range(n_rows)}
+        self.slot_arr = np.arange(n_rows, dtype=np.int64)
+        self.free: list[int] = []
+
+    def index(self, ids: np.ndarray, kind: str) -> np.ndarray:
+        """Doc ids -> rows; ``KeyError`` naming the first evicted doc."""
+        ids = np.asarray(ids, dtype=np.int64)
+        n = len(self.slot_arr)
+        slots = self.slot_arr[np.clip(ids, 0, max(n - 1, 0))] if n else \
+            np.full(ids.shape, -1, dtype=np.int64)
+        bad = (ids < 0) | (ids >= n) | (slots < 0)
+        if bad.any():
+            doc = int(ids.ravel()[np.flatnonzero(bad.ravel())[0]])
+            raise KeyError(
+                f"doc {doc} has no retained {kind} row (evicted by the "
+                "retention policy); only union-find roots and the LRU "
+                "window are verifiable")
+        return slots
+
+    def release(self, doc_ids) -> list[int]:
+        """Free the rows of ``doc_ids``; returns them.  An unknown or
+        already released doc raises (after the docs before it)."""
+        slots = []
+        for d in doc_ids:
+            d = int(d)
+            try:
+                slot = self.slot_of.pop(d)
+            except KeyError:
+                raise KeyError(f"doc {d} has no retained row to release")
+            self.slot_arr[d] = -1
+            self.free.append(slot)
+            slots.append(slot)
+        return slots
+
+    def place(self, doc0: int, count: int, n_rows: int) -> np.ndarray:
+        """Rows for the ``count`` new docs ``doc0, doc0 + 1, ...``: freed
+        rows first (last released first), then rows ``n_rows`` onward."""
+        k = min(count, len(self.free))
+        reused = self.free[len(self.free) - k:][::-1]
+        del self.free[len(self.free) - k:]
+        slots = np.concatenate([
+            np.asarray(reused, dtype=np.int64),
+            np.arange(n_rows, n_rows + count - k, dtype=np.int64)])
+        need = doc0 + count
+        if need > len(self.slot_arr):
+            arr = np.full(max(need, 2 * len(self.slot_arr)), -1,
+                          dtype=np.int64)
+            arr[: len(self.slot_arr)] = self.slot_arr
+            self.slot_arr = arr
+        self.slot_arr[doc0:need] = slots
+        self.slot_of.update(zip(range(doc0, need), slots.tolist()))
+        return slots
+
+
 class SignatureVerifier(BatchVerifier):
     """Signature-agreement estimate over gathered signature rows.
 
@@ -106,6 +171,12 @@ class SignatureVerifier(BatchVerifier):
     ``device`` defaults to ``"cuda"`` and raises without a CUDA device
     unless ``"cpu"`` is passed; on the CPU the kernel backend runs K2's
     plain version.
+
+    Row i holds doc i until the first ``release_rows`` call (retention),
+    which switches to the eviction layout: an explicit doc -> row map
+    with a pool of freed rows that later ``extend_signatures`` calls fill
+    first.  ``num_docs`` counts the doc ids ever given rows, ``_n_rows``
+    the physical rows in use.
     """
 
     def __init__(self, signatures, backend: str = "numpy",
@@ -117,10 +188,10 @@ class SignatureVerifier(BatchVerifier):
         self.batch_pairs = int(batch_pairs)
         self.device = resolve_device(device)
         # Up to two copies of the matrix, each a capacity-doubling buffer
-        # whose first ``_n_rows`` rows are row i == doc i: the host copy
-        # (numpy uint32) and the device copy (int32 words on ``device``).
+        # whose first ``_n_rows`` rows are in use: the host copy (numpy
+        # uint32) and the device copy (int32 words on ``device``).
         # Either is made from the other at first use; after that every
-        # ``extend_signatures`` appends to each copy that exists, so the
+        # ``extend_signatures`` writes to each copy that exists, so the
         # device copy grows on the device and is never uploaded again.
         self._host: np.ndarray | None = None
         self._dev: torch.Tensor | None = None
@@ -129,52 +200,96 @@ class SignatureVerifier(BatchVerifier):
         else:
             self._host = np.asarray(signatures, dtype=np.uint32)
         self._n_rows = len(signatures)
+        self._n_docs = len(signatures)
+        self._slots: _SlotPool | None = None  # the eviction layout
 
     @property
     def num_docs(self) -> int:
-        return self._n_rows
+        """Doc ids given rows so far (evicted ones included)."""
+        return self._n_docs
 
     @property
     def n_live_rows(self) -> int:
-        """Rows holding a retained document's signature (all of them:
-        the port has no eviction yet)."""
-        return self._n_rows
+        """Rows holding a retained document's signature."""
+        if self._slots is None:
+            return self._n_rows
+        return len(self._slots.slot_of)
 
     @property
     def signatures(self) -> np.ndarray:
-        """The (D, M) uint32 matrix on the host, row i == doc i."""
+        """The (R, M) uint32 row matrix on the host: row i == doc i until
+        the first eviction, then the rows of ``_slot_index``."""
         if self._host is None:
             self._host = u32_to_numpy(self._device_signatures())
         return self._host[: self._n_rows]
 
     def _device_signatures(self) -> torch.Tensor:
-        """The (D, M) matrix as int32 words on ``device``: a contiguous
+        """The (R, M) matrix as int32 words on ``device``: a contiguous
         row prefix of the growth buffer, so its rows keep the buffer's
         alignment."""
         if self._dev is None:
             self._dev = u32_from_numpy(self.signatures, self.device)
         return self._dev[: self._n_rows]
 
-    def rows_for(self, doc_ids) -> np.ndarray:
-        """Retained signature rows for ``doc_ids``."""
-        return self.signatures[np.asarray(doc_ids, dtype=np.int64)]
+    def _slot_index(self, ids) -> np.ndarray:
+        """Global doc ids -> physical rows (one array gather)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        if self._slots is None:
+            return ids
+        return self._slots.index(ids, "signature")
 
-    def frozen_rows(self) -> tuple[np.ndarray, None]:
-        """(signatures, None): the read path's snapshot of the rows.
+    def release_rows(self, doc_ids) -> int:
+        """Evict docs' signature rows into the free-row pool.
 
-        Extensions only write past this row bound or into a new buffer,
-        so the current host row prefix never changes and is shared as is.
-        The ``None`` is the doc -> slot map of the eviction layout, which
-        the port does not have yet.
+        The first call switches to the eviction layout.  Freed rows are
+        reused by later ``extend_signatures`` calls, so the matrix stops
+        growing once eviction keeps pace with ingest.  Releasing an
+        unknown or already released doc raises ``KeyError``.
         """
-        return self.signatures, None
+        if self._slots is None:
+            # Views frozen so far share the host row prefix, and freed
+            # rows are rewritten in place from now on: one copy, once.
+            if self._host is not None:
+                self._host = self._host.copy()
+            self._slots = _SlotPool(self._n_rows)
+        return len(self._slots.release(doc_ids))
+
+    def adopt_layout(self, other: "SignatureVerifier") -> None:
+        """Share ``other``'s row buffers and layout (no copy).  A view
+        kept over another verifier's matrix re-adopts before each use,
+        since the owner's growth replaces its buffers."""
+        self._host, self._dev = other._host, other._dev
+        self._n_rows, self._n_docs = other._n_rows, other._n_docs
+        self._slots = other._slots
+
+    def rows_for(self, doc_ids) -> np.ndarray:
+        """Retained signature rows for ``doc_ids``, on the host."""
+        ids = np.asarray(doc_ids, dtype=np.int64)
+        if ids.size == 0:
+            return np.zeros((0, self._width), dtype=np.uint32)
+        return self.signatures[self._slot_index(ids)]
+
+    def frozen_rows(self) -> tuple[np.ndarray, dict | None]:
+        """(signatures, doc -> row): the read path's snapshot of the rows.
+
+        Row i == doc i (``None`` for the map): extensions only write past
+        this row bound or into a new buffer, so the current host row
+        prefix never changes and is shared as is.  In the eviction layout
+        freed rows are rewritten in place by later chunks, so the live
+        rows are copied together with the map.
+        """
+        if self._slots is None:
+            return self.signatures, None
+        return self.signatures.copy(), dict(self._slots.slot_of)
 
     def extend_signatures(self, rows) -> None:
-        """Append the signature rows of newly ingested docs, in doc order.
+        """Add the signature rows of newly ingested docs, in doc order.
 
         ``rows`` is a (C, M) numpy uint32 array or int32 word tensor.
-        Each existing copy grows by capacity doubling, so a chunk costs
-        O(chunk) amortized; the throughput counters carry over.
+        Row i == doc i: each existing copy grows by capacity doubling, so
+        a chunk costs O(chunk) amortized.  In the eviction layout freed
+        rows are filled first, in every copy that exists, by one indexed
+        copy a chunk.  The throughput counters carry over.
         """
         C = len(rows)
         if C == 0:
@@ -182,7 +297,13 @@ class SignatureVerifier(BatchVerifier):
         M = self._width
         if rows.shape[-1] != M:
             raise ValueError(f"signature width {rows.shape[-1]} != existing {M}")
-        n0, n1 = self._n_rows, self._n_rows + C
+        n0 = self._n_rows
+        if self._slots is None:
+            slots = None
+            n1 = n0 + C
+        else:
+            slots = self._slots.place(self._n_docs, C, n0)
+            n1 = max(n0, int(slots.max()) + 1)
         if self._host is not None:
             host = (u32_to_numpy(rows) if isinstance(rows, torch.Tensor)
                     else np.asarray(rows, dtype=np.uint32))
@@ -190,7 +311,10 @@ class SignatureVerifier(BatchVerifier):
                 buf = np.empty((max(n1, 2 * n0), M), dtype=np.uint32)
                 buf[:n0] = self._host[:n0]
                 self._host = buf
-            self._host[n0:n1] = host
+            if slots is None:
+                self._host[n0:n1] = host
+            else:
+                self._host[slots] = host
         if self._dev is not None:
             dev = (rows.to(self.device) if isinstance(rows, torch.Tensor)
                    else u32_from_numpy(rows, self.device))
@@ -199,8 +323,13 @@ class SignatureVerifier(BatchVerifier):
                                   device=self.device)
                 buf[:n0] = self._dev[:n0]
                 self._dev = buf
-            self._dev[n0:n1] = dev
+            if slots is None:
+                self._dev[n0:n1] = dev
+            else:
+                self._dev.index_copy_(
+                    0, torch.from_numpy(slots).to(self.device), dev)
         self._n_rows = n1
+        self._n_docs += C
 
     @property
     def _width(self) -> int:
@@ -215,15 +344,15 @@ class SignatureVerifier(BatchVerifier):
         return block[0], block[1]
 
     def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
-        pairs = np.asarray(pairs, dtype=np.int64)
-        if pairs.min() < 0 or pairs.max() >= self.num_docs:
-            raise IndexError(f"pair index outside [0, {self.num_docs})")
+        rows = self._slot_index(pairs)
+        if rows.min() < 0 or rows.max() >= self._n_rows:
+            raise IndexError(f"pair row outside [0, {self._n_rows})")
         if self.backend == "numpy":
             sig = self.signatures
-            a_idx, b_idx = pairs[:, 0], pairs[:, 1]
+            a_idx, b_idx = rows[:, 0], rows[:, 1]
             return (sig[a_idx] == sig[b_idx]).mean(axis=-1, dtype=np.float32)
         sig = self._device_signatures()
-        a, b = self._upload_pairs(pairs)
+        a, b = self._upload_pairs(rows)
         if self.backend == "torch":
             est = minhash.estimate_jaccard(sig[a], sig[b])
         else:
@@ -330,6 +459,10 @@ class ExactJaccardVerifier(BatchVerifier):
     concatenating the two padded id rows, sorting each row, and counting
     adjacent equal values (|A ∩ B| by merge).  Matches
     ``jaccard.exact_jaccard`` on n-gram sets exactly.
+
+    Retention: as in ``SignatureVerifier``, the first ``release_rows``
+    call switches from row i == doc i to a doc -> row map with a pool of
+    freed rows that later extensions fill first.
     """
 
     def __init__(self, id_rows: list[np.ndarray], batch_pairs: int = 2048,
@@ -339,6 +472,8 @@ class ExactJaccardVerifier(BatchVerifier):
         self._rows = [np.asarray(r, dtype=np.int64) for r in id_rows]
         self._vocab = _vocab  # n-gram -> id (None: raw id rows only)
         self._ngram = _ngram
+        self._slots: _SlotPool | None = None  # the eviction layout
+        self._n_docs = len(self._rows)
         self._rebuild()
 
     @staticmethod
@@ -368,44 +503,107 @@ class ExactJaccardVerifier(BatchVerifier):
 
     @property
     def n_live_rows(self) -> int:
-        return self._n_rows
+        """Rows holding a retained document's n-gram ids."""
+        if self._slots is None:
+            return self._n_rows
+        return len(self._slots.slot_of)
+
+    def _grow(self, n1: int) -> None:
+        """Capacity-double the padded buffers to hold ``n1`` rows."""
+        if n1 <= len(self._ids_buf):
+            return
+        n0 = self._n_rows
+        cap = max(n1, 2 * n0)
+        ids_buf = np.empty((cap, self._lmax), dtype=np.int64)
+        ids_buf[:n0] = self._ids_buf[:n0]
+        len_buf = np.empty((cap,), dtype=np.int64)
+        len_buf[:n0] = self._len_buf[:n0]
+        self._ids_buf, self._len_buf = ids_buf, len_buf
 
     def extend_id_rows(self, id_rows: list[np.ndarray]) -> None:
-        """Append sorted id rows, interned in this verifier's namespace.
+        """Add sorted id rows, interned in this verifier's namespace.
 
         Capacity-doubling buffers make a chunk O(chunk) amortized while
         its rows fit the current width; a chunk holding a longer
-        document than any before pads the whole matrix again.
+        document than any before pads the whole matrix again.  In the
+        eviction layout freed rows are filled first.
         """
         if not id_rows:
             return
         new = [np.asarray(r, dtype=np.int64) for r in id_rows]
+        if self._slots is not None:
+            self._extend_into_slots(new)
+            return
         n0, n1 = self._n_rows, self._n_rows + len(new)
         self._rows.extend(new)
+        self._n_docs = n1
         if max(len(r) for r in new) > self._lmax:
             self._rebuild()
             return
-        if n1 > len(self._ids_buf):
-            cap = max(n1, 2 * n0)
-            ids_buf = np.empty((cap, self._lmax), dtype=np.int64)
-            ids_buf[:n0] = self._ids_buf[:n0]
-            len_buf = np.empty((cap,), dtype=np.int64)
-            len_buf[:n0] = self._len_buf[:n0]
-            self._ids_buf, self._len_buf = ids_buf, len_buf
+        self._grow(n1)
         self._ids_buf[n0:n1] = self._pad_rows(new, n0, self._lmax)
         self._len_buf[n0:n1] = [len(r) for r in new]
         self._n_rows = n1
         self.ids = self._ids_buf[:n1]
         self.lengths = self._len_buf[:n1]
 
-    def frozen_rows(self) -> tuple[np.ndarray, np.ndarray, None]:
-        """(ids, lengths, None): the read path's snapshot of the rows.
+    def _extend_into_slots(self, new: list[np.ndarray]) -> None:
+        """Eviction-layout extension: fill freed rows, then append."""
+        slots = self._slots.place(self._n_docs, len(new), len(self._rows)).tolist()
+        self._n_docs += len(new)
+        for slot, row in zip(slots, new):
+            if slot < len(self._rows):
+                self._rows[slot] = row
+            else:
+                self._rows.append(row)
+        if max(len(r) for r in new) > self._lmax:
+            self._rebuild()            # one full pad at the new width
+            return
+        n1 = len(self._rows)
+        self._grow(n1)
+        for slot, row in zip(slots, new):
+            self._ids_buf[slot] = self._pad_rows([row], slot, self._lmax)[0]
+            self._len_buf[slot] = len(row)
+        self._n_rows = n1
+        self.ids = self._ids_buf[:n1]
+        self.lengths = self._len_buf[:n1]
 
-        Extensions write past this row bound or into new buffers, so the
-        current row prefixes never change.  The ``None`` is the eviction
-        layout's doc -> slot map, which the port does not have yet.
+    def _slot_index(self, ids) -> np.ndarray:
+        """Global doc ids -> physical rows."""
+        ids = np.asarray(ids, dtype=np.int64)
+        if self._slots is None:
+            return ids
+        return self._slots.index(ids, "token")
+
+    def release_rows(self, doc_ids) -> int:
+        """Evict docs' id rows into the free-row pool.  Each doc's id array
+        is dropped at once; its padded row is reused by the next
+        extension."""
+        if self._slots is None:
+            # As in ``SignatureVerifier.release_rows``: views frozen so far
+            # share these buffers, which are rewritten in place from now on.
+            self._ids_buf = self._ids_buf.copy()
+            self._len_buf = self._len_buf.copy()
+            self.ids = self._ids_buf[: self._n_rows]
+            self.lengths = self._len_buf[: self._n_rows]
+            self._slots = _SlotPool(self._n_rows)
+        slots = self._slots.release(doc_ids)
+        for slot in slots:
+            self._rows[slot] = np.zeros((0,), dtype=np.int64)
+            self._len_buf[slot] = 0
+        return len(slots)
+
+    def frozen_rows(self) -> tuple[np.ndarray, np.ndarray, dict | None]:
+        """(ids, lengths, doc -> row): the read path's snapshot of the rows.
+
+        Row i == doc i (``None`` for the map): extensions write past this
+        row bound or into new buffers, so the current row prefixes never
+        change and are shared.  In the eviction layout freed rows are
+        rewritten in place, so the rows are copied with the map.
         """
-        return self.ids, self.lengths, None
+        if self._slots is None:
+            return self.ids, self.lengths, None
+        return self.ids.copy(), self.lengths.copy(), dict(self._slots.slot_of)
 
     def extend_token_lists(self, token_lists: list[list[str]]) -> None:
         """Intern new documents with the persistent vocabulary and append."""
@@ -434,6 +632,7 @@ class ExactJaccardVerifier(BatchVerifier):
         return cls(rows, batch_pairs=batch_pairs, _vocab=vocab, _ngram=n)
 
     def _verify_batch(self, pairs: np.ndarray) -> np.ndarray:
+        pairs = self._slot_index(pairs)
         a_idx, b_idx = pairs[:, 0], pairs[:, 1]
         merged = np.concatenate([self.ids[a_idx], self.ids[b_idx]], axis=1)
         merged.sort(axis=1)

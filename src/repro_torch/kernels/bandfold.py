@@ -2,10 +2,12 @@
 
 ``band_values`` launches the CUDA kernel (``csrc/bandfold.cu``) for
 tensors on the card and runs ``band_values_plain``
-(``core.lsh.band_values``) for tensors on the CPU.  No configuration of
-``DedupPipeline.run`` calls it (K1 folds in its own pass, and the staged
-path folds with ``core.lsh``, as the reference does); it is reached
-through ``kernels.ops``.
+(``core.lsh.band_values``) for tensors on the CPU.  ``DedupSession.refine``
+calls it with ``config.use_kernels`` to re-band the representatives'
+retained signature rows; it is also reached through ``kernels.ops``.  No
+configuration of ``DedupPipeline.run`` calls it (K1 folds in its own
+pass, and the staged path folds with ``core.lsh``, as the reference
+does).
 """
 from __future__ import annotations
 

@@ -7,16 +7,19 @@ and one novel note through a ``DedupQueryService`` over the warm
 session.  Signatures, bands and the ``kernel`` verify backend run on
 ``--device`` (``cuda`` unless told: K1 with ``--fused-ingest``, K3 and
 K4 with ``--use-kernels``, K6 with ``--byte-ingest``, K2 with
-``--backend kernel``).
+``--backend kernel``, K5 in ``refine`` with ``--use-kernels``).
+``--retain-budget`` bounds the session's retained rows and band keys
+(``RetentionPolicy.preset``) and ``--refine-every K`` runs the second
+clustering round every K steps.
 
   PYTHONPATH=src python -m repro_torch.launch.dedup --notes 500 --dups 300
   PYTHONPATH=src python -m repro_torch.launch.dedup --steps 4 --fused-ingest \\
       --estimate --backend kernel --query 64
-  PYTHONPATH=src python -m repro_torch.launch.dedup --device cpu --estimate
+  PYTHONPATH=src python -m repro_torch.launch.dedup --device cpu --estimate \\
+      --steps 4 --retain-budget small --refine-every 2
 
-The streaming and sharded modes, retention budgets, ``--refine-every``
-and the sqlite store are not ported yet: those flags exit with a message
-naming their ``ROADMAP.md`` queue item.
+The streaming and sharded modes and the sqlite store are not ported yet:
+those flags exit with a message naming their ``ROADMAP.md`` queue item.
 """
 from __future__ import annotations
 
@@ -27,7 +30,14 @@ import time
 def report_session(mode: str, snap, seconds: float, extra: str = ""):
     """The cumulative report line (``snap`` is a ``ClusterSnapshot``):
     docs ingested, duplicate clusters, duplicates and verify throughput,
-    as the reference prints it for a session without retention."""
+    and, once anything was evicted, compacted away or refined, the
+    retained state, as the reference prints it."""
+    retain = ""
+    if snap.evicted or snap.refine_merges or snap.filter_only_hits:
+        retain = (f", {snap.retained_rows} rows retained "
+                  f"({snap.evicted} evicted, "
+                  f"{snap.filter_only_hits} filter-only hits, "
+                  f"{snap.refine_merges} refine merges)")
     print(f"{mode}: {snap.n_docs} docs ingested, "
           f"{snap.num_clusters} clusters, "
           f"{snap.num_duplicates} duplicates, "
@@ -35,7 +45,7 @@ def report_session(mode: str, snap, seconds: float, extra: str = ""):
           f"({snap.stats.pairs_excluded} excluded) in "
           f"{snap.stats.verify_batches} batches "
           f"({snap.stats.verify_pairs_per_second:.0f} pairs/s)"
-          f"{extra}, {seconds:.2f}s total")
+          f"{extra}{retain}, {seconds:.2f}s total")
 
 
 def run_query_demo(sess, notes, n: int):
@@ -65,10 +75,6 @@ _NOT_PORTED = {
     "streaming": "--streaming (the out-of-core two-phase mode) is not "
                  "ported yet: ROADMAP.md queue 1 item 2",
     "sharded": "--sharded is not ported yet: ROADMAP.md queue 1 item 4",
-    "retain_budget": "--retain-budget other than 'none' is not ported "
-                     "yet: ROADMAP.md queue 1 item 2",
-    "refine_every": "--refine-every is not ported yet: ROADMAP.md queue 1 "
-                    "item 2",
     "store": "--store sqlite is not ported yet: ROADMAP.md queue 1 item 2",
 }
 
@@ -111,9 +117,13 @@ def main(argv=None):
                     help="not ported yet (ROADMAP.md queue 1 item 4)")
     ap.add_argument("--retain-budget", default="none",
                     choices=("none", "small", "medium", "unlimited"),
-                    help="only 'none' is ported (ROADMAP.md queue 1 item 2)")
+                    help="bounded retained state: evict non-root rows past "
+                         "an LRU window and compact old band-index keys "
+                         "into per-band Bloom filters (none = append-only)")
     ap.add_argument("--refine-every", type=int, default=0,
-                    help="only 0 is ported (ROADMAP.md queue 1 item 2)")
+                    help="run the second clustering round "
+                         "(DedupSession.refine) every K ingest steps "
+                         "(0 = off)")
     ap.add_argument("--store", default=None, choices=("memory", "sqlite"),
                     help="band-store tier; only memory is ported (ROADMAP.md "
                          "queue 1 item 2).  Default: $REPRO_STORE_BACKEND "
@@ -121,16 +131,21 @@ def main(argv=None):
     args = ap.parse_args(argv)
     for flag, given in (("streaming", args.streaming),
                         ("sharded", args.sharded),
-                        ("retain_budget", args.retain_budget != "none"),
-                        ("refine_every", args.refine_every != 0),
                         ("store", args.store == "sqlite")):
         if given:
             ap.error(_NOT_PORTED[flag])
 
     import numpy as np
 
-    from repro_torch.core import DedupConfig, DedupSession
+    from repro_torch.core import DedupConfig, DedupSession, RetentionPolicy
     from repro_torch.data import inject_near_duplicates, make_i2b2_like
+
+    retention = None
+    if args.retain_budget != "none" or args.refine_every:
+        # "none" with --refine-every keeps rows append-only (no eviction)
+        # while tracking roots for the refine cadence.
+        retention = RetentionPolicy.preset(
+            args.retain_budget, refine_every=args.refine_every)
 
     notes = make_i2b2_like(args.notes)
     notes, _ = inject_near_duplicates(notes, args.dups)
@@ -149,7 +164,8 @@ def main(argv=None):
         verify_batch=args.batch,
         # None falls back to the field default ($REPRO_STORE_BACKEND).
         **({"store": args.store} if args.store else {}))
-    sess = DedupSession(cfg, backend="host", device=args.device)
+    sess = DedupSession(cfg, backend="host", retention=retention,
+                        device=args.device)
     t0 = time.perf_counter()
     for chunk in chunks:
         snap = sess.ingest(chunk)

@@ -11,8 +11,9 @@ import torch
 import repro.core.candidates as ref_candidates
 import repro.core.lsh as ref_lsh
 import repro.core.unionfind as ref_unionfind
+import repro.core as ref_core
 import repro_torch.core as core
-from repro_torch.core import lsh, unionfind
+from repro_torch.core import lsh, retention, unionfind
 from repro_torch.core.candidates import EdgeStreamSource
 from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
 
@@ -103,3 +104,7 @@ def test_exports():
     assert core.connected_components is unionfind.connected_components
     assert core.EdgeStreamSource is EdgeStreamSource
     assert {"connected_components", "EdgeStreamSource"} <= set(core.__all__)
+    for name in ("BandBloomFilter", "RetentionManager", "RetentionPolicy"):
+        assert name in core.__all__, name
+        assert getattr(core, name) is getattr(retention, name)
+        assert hasattr(ref_core, name) and name in ref_core.__all__

@@ -614,6 +614,72 @@ def test_kernel_session_and_query_service_on_card_match_cpu(cuda,
     assert all(r.best_sim == 1.0 for r in out["cuda"][3][:len(notes[::3])])
 
 
+def test_freed_slots_land_in_every_copy_on_card(cuda):
+    """After ``release_rows``, ``extend_signatures`` fills the freed rows
+    of the host copy and, by one indexed copy a chunk, of the device
+    copy; K2 on slot-mapped pairs equals the numpy backend; an evicted
+    doc raises ``KeyError``."""
+    rng = np.random.RandomState(21)
+    sig = rng.randint(0, 4, size=(300, 100)).astype(np.uint32)
+    kern = SignatureVerifier(sig[:200].copy(), backend="kernel", device=cuda)
+    host = SignatureVerifier(sig[:200].copy(), backend="numpy", device=cuda)
+    kern(np.array([[0, 1]]))                  # the device copy exists
+    kern.signatures                           # and the host copy
+    for v in (kern, host):
+        v.release_rows(range(10, 120, 3))
+    kern.extend_signatures(u32_from_numpy(sig[200:240], cuda))
+    kern.extend_signatures(sig[240:])
+    host.extend_signatures(sig[200:])
+    assert kern.n_live_rows == host.n_live_rows == 300 - 37
+    dev = kern._device_signatures().cpu().numpy().view(np.uint32)
+    np.testing.assert_array_equal(dev, kern.signatures)
+    np.testing.assert_array_equal(kern.signatures, host.signatures)
+    live = np.array(sorted(kern.frozen_rows()[1]))
+    pairs = np.stack([rng.choice(live, 20000), rng.choice(live, 20000)], 1)
+    k2.launches = 0
+    got = kern(pairs)
+    assert k2.launches == 3                   # 8,192-pair flushes
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  host(pairs).view(np.uint32))
+    with pytest.raises(KeyError, match="doc 13 has no retained"):
+        kern(np.array([[0, 13]]))
+
+
+def test_retention_session_with_refine_on_card_matches_cpu(cuda):
+    """A 256-note session under a small window, a key budget and a refine
+    every 2 steps: on the card (K1, K2, K5 in each refine) it equals the
+    same session on the CPU field by field, and refine's K5 fold equals
+    ``core.lsh.band_values`` on the same device rows."""
+    from repro_torch.core import RetentionPolicy, lsh
+
+    notes, _ = inject_near_duplicates(make_i2b2_like(160, seed=5), 96,
+                                      frac_low=0.0, frac_high=0.005, seed=6)
+    policy = RetentionPolicy(lru_window=16, band_key_budget=96,
+                             bloom_bits=1 << 12, refine_every=2)
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel")
+    out = {}
+    for device in ("cpu", "cuda"):
+        k1.launches = k2.launches = k5.launches = 0
+        sess = DedupSession(cfg, retention=policy, device=device)
+        for chunk in np.array_split(np.arange(len(notes)), 4):
+            snap = sess.ingest([notes[i] for i in chunk])
+        out[device] = (snap.labels.tolist(), snap.pairs, snap.evicted,
+                       snap.retained_rows, snap.representatives.tolist(),
+                       snap.filter_only_hits, snap.refine_merges,
+                       sess.band_index.stats())
+        launched = (k1.launches, k2.launches, k5.launches)
+    assert out["cuda"] == out["cpu"]
+    assert snap.evicted > 0 and sess.band_index.compacted_keys > 0
+    assert sess.refines_run == 2
+    assert launched[0] == 4 and launched[1] > 0 and launched[2] == 2
+    v = sess.verifier
+    slots = v._slot_index(np.array(snap.representatives))
+    rows = v._device_signatures()[torch.from_numpy(slots).to(cuda)]
+    assert torch.equal(k5.band_values(rows, cfg.rows_per_band),
+                       lsh.band_values(rows, cfg.rows_per_band))
+
+
 def test_serve_batch_with_flash_on_card_matches_cpu(cuda):
     cfg = get_reduced("h2o-danube-1.8b").with_(use_flash_attention=True)
     model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")

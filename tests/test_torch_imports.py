@@ -29,8 +29,8 @@ def test_kernel_module_imports_first_in_a_fresh_interpreter(module):
 
 
 @pytest.mark.parametrize("module", ["core.session", "core.query",
-                                    "core.sanitize", "serving.dedup_service",
-                                    "launch.dedup"])
+                                    "core.sanitize", "core.retention",
+                                    "serving.dedup_service", "launch.dedup"])
 def test_session_module_imports_first_without_jax(module):
     code = (f"import sys, repro_torch.{module}; "
             "bad = sorted(m for m in sys.modules "

@@ -1,8 +1,9 @@
 """The port's dedup CLI (``repro_torch.launch.dedup``) against the reference's.
 
 Both run in process on the same flags (the port with ``--device cpu``);
-their report lines must agree in every count.  The flags of later slices
-exit with a message naming their ROADMAP.md queue item.
+their report lines must agree in every count, the retention clause
+included.  The flags of later slices exit with a message naming their
+ROADMAP.md queue item.
 """
 import re
 
@@ -34,11 +35,19 @@ def test_report_counts_match_reference(flags, capsys):
     assert got[2].startswith("query[view v1]: 4/4 re-queried notes matched")
 
 
+def test_retention_and_refine_report_matches_reference(capsys):
+    common = ["--notes", "300", "--dups", "200", "--steps", "4", "--estimate",
+              "--retain-budget", "small", "--refine-every", "2", "--query", "4"]
+    got = _report(dedup.main, common + ["--backend", "kernel", "--use-kernels",
+                                        "--device", "cpu"], capsys)
+    want = _report(ref_dedup.main, common + ["--backend", "numpy"], capsys)
+    assert got == want
+    assert "rows retained (" in got[1] and "refine merges)" in got[1]
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--streaming"], "item 2"),
     (["--sharded"], "item 4"),
-    (["--retain-budget", "small"], "item 2"),
-    (["--refine-every", "2"], "item 2"),
     (["--store", "sqlite"], "item 2"),
 ])
 def test_later_slices_exit_with_their_queue_item(argv, item, capsys):

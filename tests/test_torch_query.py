@@ -4,8 +4,8 @@
 The port's ``numpy`` results equal the reference's ``numpy`` results on
 the same corpus, and its ``torch`` and ``kernel`` backends (plain
 versions here, ``device="cpu"``) equal its ``numpy`` backend.  Mirrors
-the host cases of ``tests/test_query_service.py`` (not the retention
-ones) and ``tests/test_sanitize.py`` (not ``maybe_install``).
+the host cases of ``tests/test_query_service.py`` (its retention cases
+too) and ``tests/test_sanitize.py`` (not ``maybe_install``).
 """
 import dataclasses
 
@@ -22,6 +22,7 @@ from repro_torch.core import (
     DedupQueryService,
     DedupSession,
     QueryResult,
+    RetentionPolicy,
     query_view,
     sanitize,
 )
@@ -36,13 +37,19 @@ def _corpus(n=40, dups=25, seed=0):
     return notes
 
 
-def _warm(notes, *, exact=False, chunks=1, ref=False, **cfg):
-    """A warm host session of the port (or of the reference)."""
+def _warm(notes, *, exact=False, chunks=1, ref=False, retention=None,
+          **cfg):
+    """A warm host session of the port (or of the reference).
+    ``retention``: ``RetentionPolicy`` fields, for either package."""
     if ref:
         sess = ref_core.DedupSession(ref_core.DedupConfig(
-            exact_verification=exact, store="memory", **cfg), backend="host")
+            exact_verification=exact, store="memory", **cfg), backend="host",
+            retention=(ref_core.RetentionPolicy(**retention)
+                       if retention is not None else None))
     else:
         sess = DedupSession(DedupConfig(exact_verification=exact, **cfg),
+                            retention=(RetentionPolicy(**retention)
+                                       if retention is not None else None),
                             device="cpu")
     for idx in np.array_split(np.arange(len(notes)), chunks):
         snap = sess.ingest([notes[i] for i in idx])
@@ -261,6 +268,53 @@ def test_later_backends_have_no_session_to_view():
         DedupSession(DedupConfig(), backend="streaming", device="cpu")
 
 
+# -- retention: eviction and Bloom compaction ------------------------------------
+
+@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+def test_query_after_eviction_finds_cluster_via_retained_root(backend):
+    notes = _corpus(60, 40)
+    sess, snap = _warm(notes, retention={"lru_window": 8}, chunks=6)
+    ref_sess, _ = _warm(notes, retention={"lru_window": 8}, chunks=6,
+                        ref=True)
+    assert snap.evicted > 0, "test needs actual evictions"
+    view = sess.view()
+    assert view.slot_of is not None  # eviction layout reached
+    assert view.slot_of == ref_sess.view().slot_of
+    svc = DedupQueryService(sess, backend=backend)
+    ref_svc = ref_core.DedupQueryService(ref_sess)
+    evicted = [d for d in range(sess.n_docs) if d not in view.slot_of]
+    assert evicted
+    for d in evicted[:5]:
+        got = svc.query([notes[d]])
+        assert _values(got) == _values(ref_svc.query([notes[d]]))
+        r = got[0]
+        assert r.is_duplicate
+        assert r.cluster_root == int(snap.labels[d])
+        # The matched doc is retained (candidates were rewritten onto
+        # roots at eviction).
+        assert r.matched_doc in view.slot_of
+
+
+def test_bloom_compacted_key_query_fallback():
+    notes = _corpus(60, 10, seed=7)
+    pol = {"lru_window": None, "band_key_budget": 4}
+    sess, _ = _warm(notes, retention=pol, chunks=6)
+    ref_sess, _ = _warm(notes, retention=pol, chunks=6, ref=True)
+    assert sess.band_index.compacted_keys > 0
+    svc = DedupQueryService(sess)
+    counter_before = sess.band_index.filter_only_hits
+    before = _session_state(sess)
+    results = svc.query(notes)
+    assert _values(results) == _values(
+        ref_core.DedupQueryService(ref_sess).query(notes))
+    # Early docs' keys were compacted into the per-band Bloom filters:
+    # the query still learns "seen before, partner unnameable".
+    assert sum(r.filter_only_hits for r in results) > 0
+    # The session's own counter is untouched (a pure read).
+    assert sess.band_index.filter_only_hits == counter_before
+    assert _session_state(sess) == before
+
+
 # -- service surface -------------------------------------------------------------
 
 def test_admit_then_query_roundtrip():
@@ -290,8 +344,9 @@ def test_public_api_surface():
     assert core.DedupQueryService is via_serving
     assert QueryRequest.__module__ == QueryServiceStats.__module__ == \
         "repro_torch.serving.dedup_service"
+    assert core.RetentionPolicy.__module__ == "repro_torch.core.retention"
     with pytest.raises(AttributeError):
-        core.RetentionPolicy
+        core.StreamingDedup
 
 
 def test_novel_query_result_shape():

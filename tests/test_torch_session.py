@@ -223,18 +223,17 @@ def test_pipeline_run_through_the_session_keeps_its_result():
 
 
 def test_later_slices_raise_not_implemented():
+    """The streaming and sharded backends and ``over_store`` wait for
+    their queue items; retention, ``refine`` and the bounded
+    ``BandIndex`` are ported (``tests/test_torch_retention.py``)."""
     cfg = DedupConfig()
-    for kw in (dict(backend="streaming"), dict(backend="sharded"),
-               dict(retention=object())):
+    for kw in (dict(backend="streaming"), dict(backend="sharded")):
         with pytest.raises(NotImplementedError, match="queue 1 item"):
             DedupSession(cfg, device="cpu", **kw)
-    sess = DedupSession(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        sess.refine()
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         DedupSession.over_store(None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        BandIndex(4, key_budget=8)
+    assert BandIndex(4, key_budget=8).stats()["bloom_bytes"] == 0
+    assert DedupSession(cfg, device="cpu").refine().refine_merges == 0
     with pytest.raises(ValueError):
         DedupSession(cfg, backend="nope", device="cpu")
 
