@@ -65,6 +65,20 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   keys compacted; R4 the dedup CLI with ``--retain-budget small
   --refine-every 2``.  K1, K2 and K5 launches are counted per run, and
   K5 is timed at the last refine's representative count.
+* Phase T, the streaming backend on phase H's notes and config, each
+  band store a file in a temporary directory: T1 H1's 16,384 notes in
+  4 chunks through ``DedupSession(backend="streaming", chunk_docs=512)``
+  (K1 once a flush, K2), its partition, keep mask and shared sims equal
+  H1's and no pair verified twice, each step split into phase 1, the
+  store re-scan and the engine, with the store's write metrics; T2
+  ``r3_notes`` byte streaming (K6 and K1) equal to a token streaming
+  session fed no-stem token lists; T3 ``r3_notes`` under an LRU window
+  of 128, equal to the append-only streaming session with a smaller
+  store, on the card and on the CPU field by field; T4 a standalone
+  ``StreamingDedup`` clustered at edge thresholds 0.75 and 0.6 with no
+  K1 launch, then adopted by ``over_store`` and fed a copy of doc 0;
+  T5 the CLI's ``--streaming`` with H4's duplicate count.
+  ``launches_phase_t`` on the K1, K2 and K6 lines.
 * Phase S, the sharded step (``core.dist_lsh``) on the card over an
   NCCL process group of one rank, on phase A's packed matrix: stage 2
   on the host merge with K2, then on the device with K7 (masked pair
@@ -201,6 +215,8 @@ def main() -> int:
     for line in (k1_line, k2_line, k6_line):
         line["launches_phase_h"] = {path: counts[line["name"]]
                                     for path, counts in h_launches.items()}
+    # Phase R takes H1's record; phase T compares against it too.
+    ctx["t_h1"] = {k: ctx["h1"][k] for k in ("labels", "pairs", "summary")}
     t0 = time.perf_counter()
     r_launches, k5_refine = phase_r(torch, clock_hz, notes, prov, ctx)
     emit(phase_r={"seconds": time.perf_counter() - t0,
@@ -209,6 +225,13 @@ def main() -> int:
         line["launches_phase_r"] = {path: counts[line["name"]]
                                     for path, counts in r_launches.items()}
     k5_line["refine"] = k5_refine
+    t0 = time.perf_counter()
+    t_launches = phase_t(torch, notes, prov, ctx)
+    emit(phase_t={"seconds": time.perf_counter() - t0,
+                  "launches": t_launches})
+    for line in (k1_line, k2_line, k6_line):
+        line["launches_phase_t"] = {path: counts[line["name"]]
+                                    for path, counts in t_launches.items()}
     import torch.distributed as dist
 
     # One NCCL group of one rank: the sharded step's collectives run on
@@ -1179,7 +1202,6 @@ def session_run(torch, cfg, notes, want, device: str, counters: dict) -> tuple:
     import numpy as np
 
     from repro_torch.core.session import DedupSession
-    from repro_torch.kernels import sigjaccard as k2
 
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
@@ -1213,18 +1235,7 @@ def session_run(torch, cfg, notes, want, device: str, counters: dict) -> tuple:
     shared = [(s, sims[(a, b)]) for a, b, s in snap.pairs if (a, b) in sims]
     check(len(shared) > 0 and all(x == y for x, y in shared),
           "sims of pairs both evaluate are equal")
-    # Every session pair against K2's plain counts / M on the same rows.
-    pairs = np.array([(a, b) for a, b, _ in snap.pairs], dtype=np.int64)
-    got = np.array([s for _, _, s in snap.pairs], dtype=np.float32)
-    sig = torch.from_numpy(sess.signatures.view(np.int32)).to(device)
-    M = sig.shape[1]
-    for s in range(0, len(pairs), 1 << 20):
-        a = torch.from_numpy(pairs[s : s + (1 << 20), 0]).to(device)
-        b = torch.from_numpy(pairs[s : s + (1 << 20), 1]).to(device)
-        want_s = (k2.pair_counts_plain(sig, a, b).cpu().numpy()
-                  .astype(np.float32) / np.float32(M))
-        check(np.array_equal(got[s : s + len(want_s)], want_s),
-              "session pair sims == K2 plain counts / M")
+    check_pair_sims(torch, sess, snap, device, "session")
     summary = {
         "chunks": len(chunks), "steps": steps,
         "ingest_s": sum(x["seconds"] for x in steps),
@@ -1235,6 +1246,26 @@ def session_run(torch, cfg, notes, want, device: str, counters: dict) -> tuple:
         "verify_batches": snap.stats.verify_batches,
         "launches": launches}
     return sess, snap, summary
+
+
+def check_pair_sims(torch, sess, snap, device: str, what: str) -> None:
+    """Every pair of ``snap`` against K2's plain counts / M on the rows of
+    ``sess.signatures`` (row i == doc i: no eviction)."""
+    import numpy as np
+
+    from repro_torch.kernels import sigjaccard as k2
+
+    pairs = np.array([(a, b) for a, b, _ in snap.pairs], dtype=np.int64)
+    got = np.array([s for _, _, s in snap.pairs], dtype=np.float32)
+    sig = torch.from_numpy(sess.signatures.view(np.int32)).to(device)
+    M = sig.shape[1]
+    for s in range(0, len(pairs), 1 << 20):
+        a = torch.from_numpy(pairs[s : s + (1 << 20), 0]).to(device)
+        b = torch.from_numpy(pairs[s : s + (1 << 20), 1]).to(device)
+        want_s = (k2.pair_counts_plain(sig, a, b).cpu().numpy()
+                  .astype(np.float32) / np.float32(M))
+        check(np.array_equal(got[s : s + len(want_s)], want_s),
+              f"{what} pair sims == K2 plain counts / M")
 
 
 def serve_queries(torch, svc, queries: list[str], device: str,
@@ -1490,6 +1521,7 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           timeout=600)
     check(proc.returncode == 0, f"dedup CLI exits 0: {proc.stderr[-2000:]}")
+    ctx["h4_report"] = proc.stdout.splitlines()
     emit(phase_h4={"argv": argv[1:], "seconds": time.perf_counter() - t0,
                    "report": proc.stdout.splitlines()})
     return launches
@@ -1785,6 +1817,285 @@ def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
     emit(phase_r4={"argv": argv[1:], "seconds": time.perf_counter() - t0,
                    "report": report})
     return launches, k5_refine
+
+
+# -- phase T: the streaming backend over the band store ------------------------------
+
+T_CHUNK_DOCS, T3_WINDOW, T4_EDGES = 512, 128, (0.75, 0.6)
+
+
+def streaming_run(torch, cfg, chunks, device: str, counters: dict, *,
+                  store_path: str, retention=None, tokenized: bool = False):
+    """One streaming ``DedupSession`` (``chunk_docs`` ``T_CHUNK_DOCS``, its
+    store at ``store_path``) fed ``chunks`` through ``ingest_stream``, each
+    step timed on the host clock after a synchronize and split by the
+    session's ``stage_timings``: phase 1 (kernel, band download, store
+    write), the re-scan (``read_band`` decodes and sorts), the engine
+    over it and the snapshot (labels and pair list); the rest of a step
+    is the next chunk's dispatch (tokenize).  ``counters`` maps names to kernel modules; their launches
+    are set to 0 before the run and returned after it."""
+    from repro_torch.core.session import DedupSession
+
+    sess = DedupSession(cfg, backend="streaming", chunk_docs=T_CHUNK_DOCS,
+                        store_path=store_path, retention=retention,
+                        device=device)
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    steps = []
+    t0 = time.perf_counter()
+    for snap in sess.ingest_stream(chunks, tokenized=tokenized):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        t = sess.stage_timings
+        steps.append({"seconds": now - t0,
+                      **{k: t[k] for k in (
+                          "phase1_s", "phase1_kernel_s", "phase1_pack_s",
+                          "phase1_upload_s", "phase1_download_s",
+                          "phase1_store_s", "phase1_flushes", "rescan_s",
+                          "engine_s", "merge_s")},
+                      "snapshot_s": t["labels_s"] + t["pairs_s"],
+                      "pairs_evaluated": snap.stats.pairs_evaluated,
+                      "evicted": snap.evicted})
+        t0 = now
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    store = sess._impl.sd.store
+    summary = {"chunks": len(chunks), "steps": steps,
+               "ingest_s": sum(x["seconds"] for x in steps),
+               "pairs_evaluated": snap.stats.pairs_evaluated,
+               "pairs_above_edge": snap.stats.pairs_above_edge,
+               "verify_batches": snap.stats.verify_batches,
+               "evicted": snap.evicted, "retained_rows": snap.retained_rows,
+               "store": {"n_writes": store.n_writes,
+                         "write_bytes": store.write_bytes,
+                         "n_entries": store.n_entries(),
+                         "file_size_bytes": store.file_size_bytes()},
+               "launches": launches}
+    return sess, snap, summary
+
+
+def keep_mask(labels):
+    """The first doc of each cluster is kept."""
+    import numpy as np
+
+    keep = np.zeros(len(labels), dtype=bool)
+    keep[np.unique(labels, return_index=True)[1]] = True
+    return keep
+
+
+def phase_t(torch, notes: list[str], prov: list, ctx: dict,
+            device: str = "cuda") -> dict:
+    """The streaming backend on phase A's notes and H1's config, its band
+    store a file in a temporary directory.  T1: H1's 16,384 notes in
+    ``H_CHUNKS`` chunks, flushed every ``T_CHUNK_DOCS`` notes (K1 once a
+    flush, K2), against H1 and the one-shot run.  T2: ``r3_notes`` byte
+    streaming (K6 and K1) against a token streaming session fed no-stem
+    token lists.  T3: ``r3_notes`` under an LRU window of ``T3_WINDOW``
+    against the append-only streaming session, on the card and on the
+    CPU.  T4: a standalone ``StreamingDedup`` clustered at two edge
+    thresholds without re-hashing, then adopted by ``over_store``.  T5:
+    the CLI's ``--streaming`` against H4's host-mode duplicate count.
+    Returns each path's K1, K2 and K6 launches."""
+    import re
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.core import shingle
+    from repro_torch.core.pipeline import DedupConfig
+    from repro_torch.core.retention import RetentionPolicy
+    from repro_torch.core.session import DedupSession
+    from repro_torch.core.streaming import StreamingDedup
+    from repro_torch.kernels import byte_shingle as k6
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+
+    counters = {"fused_ingest": (k1, "launches"),
+                "pair_counts": (k2, "launches"),
+                "byte_token_hashes": (k6, "launches")}
+    launches = {}
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel",
+                      verify_batch="band")
+    h1, one = ctx.pop("t_h1"), ctx["res"]
+    size = -(-len(notes) // H_CHUNKS)
+    chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
+    notes3 = r3_notes(notes, prov)
+    size3 = -(-len(notes3) // H_CHUNKS)
+    chunks3 = [notes3[i : i + size3] for i in range(0, len(notes3), size3)]
+    flushes = sum(-(-len(c) // T_CHUNK_DOCS) for c in chunks)
+    flushes3 = sum(-(-len(c) // T_CHUNK_DOCS) for c in chunks3)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # T1: the streaming session at the main path's size.
+        sess, snap, t1 = streaming_run(torch, cfg, chunks, device, counters,
+                                       store_path=os.path.join(tmp, "t1.db"))
+        launches["t1_session"] = t1["launches"]
+        sims = {(a, b): s for a, b, s in h1["pairs"]}
+        shared = [(s, sims[(a, b)]) for a, b, s in snap.pairs
+                  if (a, b) in sims]
+        check(len(shared) > 0 and all(x == y for x, y in shared),
+              "T1: sims of pairs T1 and H1 both evaluate are equal")
+        check(canonical(snap.labels) == canonical(h1["labels"]),
+              "T1 partition == H1 partition")
+        check(np.array_equal(keep_mask(snap.labels), keep_mask(h1["labels"])),
+              "T1 keep mask == H1 keep mask")
+        # The reference's streaming session keeps the one-shot run's
+        # contract at this size: its labels id for id, and exactly its
+        # verified pairs at equal sims.
+        check(np.array_equal(snap.labels, one.labels),
+              "T1 labels == one-shot labels, id for id")
+        check(snap.stats.pairs_evaluated == one.stats.pairs_evaluated,
+              "T1 pairs_evaluated == the one-shot's: the store re-scan "
+              "verifies no pair twice")
+        check(len(snap.pairs) == len(one.pairs)
+              and ({(a, b): s for a, b, s in snap.pairs}
+                   == {(a, b): s for a, b, s in one.pairs}),
+              "T1 verified pairs and sims == the one-shot's")
+        check(np.array_equal(sess.signatures, one.signatures),
+              "T1 session signatures == one-shot signatures")
+        check_pair_sims(torch, sess, snap, device, "T1")
+        check(len(sess._impl.sd._sig_cache) == 0,
+              "T1: the phase-1 host cache stays empty")
+        check(t1["launches"]["fused_ingest"] == flushes
+              and t1["launches"]["pair_counts"] > 0,
+              "T1: K1 once a flush, and K2")
+        t1.update(notes=len(notes), chunk_docs=T_CHUNK_DOCS, flushes=flushes,
+                  shared_pairs=len(shared),
+                  one_shot_pairs_evaluated=one.stats.pairs_evaluated,
+                  h1_ingest_s=h1["summary"]["ingest_s"])
+        emit(phase_t1=t1)
+        del sess, snap, shared, sims, h1
+
+        # T2: byte streaming against token streaming of no-stem tokens.
+        kw = dict(use_kernels=True, exact_verification=False,
+                  verify_batch="band")
+        _, byt, t2b = streaming_run(
+            torch, DedupConfig(byte_ingest=True, **kw), chunks3, device,
+            counters, store_path=os.path.join(tmp, "t2_bytes.db"))
+        launches["t2_byte_session"] = t2b["launches"]
+        toks3 = [[shingle.tokenize(t, do_stem=False) for t in c]
+                 for c in chunks3]
+        _, tok, t2t = streaming_run(
+            torch, DedupConfig(fused_ingest=True, **kw), toks3, device,
+            counters, store_path=os.path.join(tmp, "t2_tokens.db"),
+            tokenized=True)
+        check(byt.labels.tolist() == tok.labels.tolist(),
+              "T2 byte labels == no-stem token labels")
+        check(byt.pairs == tok.pairs, "T2 byte (a, b, sim) list == token's")
+        check(t2b["launches"]["byte_token_hashes"] == flushes3
+              and t2b["launches"]["fused_ingest"] == flushes3
+              and t2b["launches"]["pair_counts"] > 0,
+              "T2: K6 and K1 once a flush, and K2")
+        emit(phase_t2={"notes": len(notes3), "bytes": t2b, "tokens": t2t,
+                       "clusters": byt.num_clusters})
+        del byt, tok
+
+        # T3: eviction over the store, against append-only, card and CPU.
+        _, plain, t3p = streaming_run(torch, cfg, chunks3, device, counters,
+                                      store_path=os.path.join(tmp, "t3.db"))
+        policy = RetentionPolicy(lru_window=T3_WINDOW)
+        out = {}
+        for i, dev in enumerate((device, "cpu")):
+            s3, snap3, summary = streaming_run(
+                torch, cfg, chunks3, dev, counters, retention=policy,
+                store_path=os.path.join(tmp, f"t3_evict{i}.db"))
+            out[dev] = {"labels": snap3.labels.tolist(), "pairs": snap3.pairs,
+                        "evicted": snap3.evicted,
+                        "retained_rows": snap3.retained_rows,
+                        "n_entries": summary["store"]["n_entries"],
+                        "summary": summary}
+            if dev == device:
+                launches["t3_session"] = summary["launches"]
+        for field in ("labels", "pairs", "evicted", "retained_rows",
+                      "n_entries"):
+            check(out[device][field] == out["cpu"][field],
+                  f"T3 {field}: card == CPU")
+        check(out[device]["labels"] == plain.labels.tolist()
+              and out[device]["pairs"] == plain.pairs,
+              "T3 labels and pairs == the append-only streaming session's")
+        check(out[device]["evicted"] > 0, "T3 evicted rows")
+        check(out[device]["n_entries"] < t3p["store"]["n_entries"],
+              "T3: the compacted store holds fewer entries")
+        emit(phase_t3={"notes": len(notes3), "lru_window": T3_WINDOW,
+                       "append_only": t3p, "card": out[device]["summary"],
+                       "cpu_s": out["cpu"]["summary"]["ingest_s"],
+                       "n_entries_append_only": t3p["store"]["n_entries"],
+                       "n_entries_compacted": out[device]["n_entries"]})
+        del plain, out
+
+        # T4: phase 2 again at another threshold, without re-hashing.
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        sd = StreamingDedup(cfg, store_path=os.path.join(tmp, "t4.db"),
+                            chunk_docs=T_CHUNK_DOCS, device=device)
+        sd.ingest(notes3)
+        t4 = {"notes": len(notes3), "phase1_s": time.perf_counter() - t0,
+              "phase1_launches": {n: getattr(m, a)
+                                  for n, (m, a) in counters.items()},
+              "clusters": []}
+        check(t4["phase1_launches"]["fused_ingest"]
+              == -(-len(notes3) // T_CHUNK_DOCS), "T4: K1 once a flush")
+        for edge in T4_EDGES:
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            uf, stats = sd.cluster(edge_threshold=edge)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            run = {n: getattr(m, a) for n, (m, a) in counters.items()}
+            check(run["fused_ingest"] == 0 and run["pair_counts"] > 0,
+                  f"T4: cluster({edge}) launches K2 and no K1")
+            labels = uf.components()[: sd.n_docs]
+            t4["clusters"].append({
+                "edge_threshold": edge, "seconds": seconds, "launches": run,
+                "pairs_evaluated": stats["pairs_evaluated"],
+                "duplicates": int(sd.n_docs - len(set(labels.tolist())))})
+        pair_sims = [
+            {(a, b): s for a, b, s in DedupSession.over_store(
+                sd, config=replace(cfg, edge_threshold=edge)).acc.pairs}
+            for edge in T4_EDGES]
+        both = [(s, pair_sims[1][k]) for k, s in pair_sims[0].items()
+                if k in pair_sims[1]]
+        check(len(both) > 0 and all(x == y for x, y in both),
+              "T4: sims of pairs both thresholds evaluate are equal")
+        live = DedupSession.over_store(sd)
+        snap = live.ingest([notes3[0]])
+        check(snap.labels[len(notes3)] == snap.labels[0],
+              "T4: a re-ingested copy of doc 0 joins doc 0's cluster")
+        t4["shared_pairs"] = len(both)
+        emit(phase_t4=t4)
+        launches["t4_rethreshold"] = t4["clusters"][-1]["launches"]
+        del sd, live, snap, pair_sims, both
+
+        # T5: the CLI's streaming mode, as a user runs it.
+        argv = [sys.executable, "-m", "repro_torch.launch.dedup", "--notes",
+                "2000", "--dups", "1000", "--steps", "4", "--streaming",
+                "--estimate", "--fused-ingest", "--use-kernels", "--chunk",
+                str(T_CHUNK_DOCS), "--store-path",
+                os.path.join(tmp, "t5.db"), "--device", device]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                              env={**os.environ,
+                                   "PYTHONPATH": str(ROOT / "src")},
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+    report = proc.stdout.splitlines()
+    check(proc.returncode == 0,
+          f"streaming dedup CLI exits 0: {proc.stderr[-2000:]}")
+    line = [ln for ln in report if ln.startswith("streaming[4 step(s)]: ")]
+    check(len(line) == 1, "streaming dedup CLI prints its report line")
+    dups = re.compile(r" (\d+) duplicates,")
+    host = [ln for ln in ctx["h4_report"] if ln.startswith("host[")]
+    check(dups.search(line[0]).group(1) == dups.search(host[0]).group(1),
+          "T5: streaming CLI duplicates == H4's host-mode duplicates")
+    emit(phase_t5={"argv": argv[1:], "seconds": seconds, "report": report,
+                   "h4_report": host[0]})
+    return launches
 
 
 # -- phase S: the sharded step ----------------------------------------------------

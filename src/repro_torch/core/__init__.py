@@ -10,6 +10,7 @@ from repro_torch.core.candidates import (
     CandidateSource,
     EdgeStreamSource,
     ShardedEdgeSource,
+    StoreBandSource,
     candidate_pairs,
 )
 from repro_torch.core.dist_lsh import (
@@ -62,7 +63,7 @@ __all__ = [
     "BandIndex", "ClusterSnapshot", "DedupSession", "DedupQueryService",
     "DocIdAllocator", "SessionView", "QueryResult", "query_view",
     "BandMatrixSource", "CandidateSource", "EdgeStreamSource",
-    "ShardedEdgeSource",
+    "ShardedEdgeSource", "StoreBandSource",
     "candidate_pairs",
     "ClusterAccumulator", "ClusterStats", "cluster_source",
     "BatchVerifier", "CallbackVerifier", "DeviceScoredEdgeVerifier",

@@ -9,6 +9,8 @@ Per band, the ``(band_value, doc)`` pairs are sorted lexicographically
 and the equal-value runs are the candidate groups (the paper's
 sort-based method, §3.6 method 2).  ``BandMatrixSource`` reads a dense
 in-memory ``(D, b, 2)`` band matrix, the ``DedupPipeline`` path.
+``StoreBandSource`` reads a band store band by band
+(``core.bandstore``), the streaming mode's phase 2.
 ``ShardedEdgeSource`` reads the prescreened edge buffers of the sharded
 step (``dist_lsh``): each surviving edge is a two-member run, so the
 sharded path's host merge drives the same engine; ``EdgeStreamSource``
@@ -17,6 +19,7 @@ throughout, so global ids of chunked corpora past 2**31 cannot wrap.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Iterator, Protocol, runtime_checkable
 
@@ -119,6 +122,38 @@ class BandMatrixSource:
     def iter_bands(self) -> Iterator[BandRuns]:
         for j in range(self.num_bands):
             yield make_band_runs(j, self.bands[:, j, :], self._doc_ids)
+
+
+class StoreBandSource:
+    """Out-of-core source over a band store (Design 1 or Design 2).
+
+    ``store`` needs only ``read_band(j) -> (doc_ids, values)``, the
+    paper's "select * where band_id = j" access pattern (§5.2).  The
+    streaming two-phase mode reads its phase 2 through this source.
+    ``scan_s`` sums the wall time of the reads and sorts so far.
+    """
+
+    def __init__(self, store, num_bands: int, num_docs: int):
+        self.store = store
+        self._num_bands = int(num_bands)
+        self._num_docs = int(num_docs)
+        self.scan_s = 0.0
+
+    @property
+    def num_docs(self) -> int:
+        return self._num_docs
+
+    @property
+    def num_bands(self) -> int:
+        return self._num_bands
+
+    def iter_bands(self) -> Iterator[BandRuns]:
+        for j in range(self._num_bands):
+            t0 = time.perf_counter()
+            docs, vals = self.store.read_band(j)
+            runs = make_band_runs(j, vals, docs)
+            self.scan_s += time.perf_counter() - t0
+            yield runs
 
 
 class ShardedEdgeSource:

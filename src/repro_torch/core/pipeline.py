@@ -77,8 +77,8 @@ class DedupConfig:
                 "exact_verification=False (signature-estimate mode)")
         if self.store == "sqlite":
             raise NotImplementedError(
-                "store='sqlite' is not ported yet (ROADMAP.md, queue 1: "
-                "multi-step sessions and bounded state, core/bandstore.py)")
+                "store='sqlite' is not ported yet (ROADMAP.md, queue 1 "
+                "item 2: the sqlite tier, SqliteBandStore)")
 
     @property
     def num_bands(self) -> int:

@@ -214,5 +214,9 @@ class RetentionManager:
         self._pending = [d for d in self._pending if d >= cutoff]
         session._release_rows(evict)
         session.band_index.evict(evict, uf.find)
+        # A streaming session also rewrites the evicted docs' band-store
+        # rows onto their roots (a no-op for the host backend), so its
+        # phase-1 store stops growing with evicted history.
+        session._compact_band_store(evict, uf.find)
         self.n_evicted += len(evict)
         return len(evict)

@@ -1,8 +1,8 @@
-"""Incremental multi-step ingest: the host ``DedupSession``.
+"""Incremental multi-step ingest: ``DedupSession``.
 
-Port of the host slice of ``repro.core.session``.  ``DedupSession``
-owns the long-lived clustering state of a corpus that arrives in
-chunks:
+Port of the host and streaming backends of ``repro.core.session``.
+``DedupSession`` owns the long-lived clustering state of a corpus that
+arrives in chunks:
 
 * one ``engine.ClusterAccumulator`` (union-find, verified-sim cache,
   cumulative ``ClusterStats``);
@@ -17,6 +17,14 @@ values against the retained index, which become explicit edges
 (``candidates.ShardedEdgeSource``) verified through the same engine.
 Over N chunks the candidate-pair set equals the one-shot run's; only the
 feed order differs.
+
+The streaming backend (``backend="streaming"``) writes each chunk into
+a Design-2 band store through ``core.streaming.StreamingDedup`` (phase
+1) and then re-scans the whole store band-major through the accumulator
+(phase 2); the verified-sim cache keeps a pair from being verified
+twice.  The store is its retained state: it keeps no ``BandIndex``
+entries and publishes no ``SessionView``.  ``over_store`` adopts an
+already-populated ``StreamingDedup``.
 
 The read path publishes an immutable ``SessionView``
 (``DedupSession.view``), which ``core.query`` and
@@ -34,8 +42,9 @@ signatures and bands through the ``DedupPipeline`` stages (K1, K3 and
 K4, or K6 with byte ingest), the kernel verify backend through K2, and
 ``refine``'s re-band of the representatives through K5 when
 ``config.use_kernels`` is on.  Not ported yet, and raising
-``NotImplementedError``: the streaming and sharded backends and
-``over_store`` (``ROADMAP.md`` queue 1, items 2 and 4).
+``NotImplementedError``: the sharded backend (``ROADMAP.md`` queue 1,
+item 4) and the sqlite store tier (``DedupConfig(store="sqlite")``,
+item 2).
 """
 from __future__ import annotations
 
@@ -73,8 +82,6 @@ from repro_torch.kernels import bandfold
 
 BACKENDS = ("host", "streaming", "sharded")
 
-_ITEM2 = ("is not ported yet (ROADMAP.md, queue 1 item 2: multi-step "
-          "sessions and bounded state)")
 _ITEM4 = "is not ported yet (ROADMAP.md, queue 1 item 4: sharded session)"
 
 
@@ -317,8 +324,8 @@ class SessionView:
     In the eviction layout (a retention policy evicted a row) the rows
     and the doc -> row map are copies taken at publication.  ``device``
     is the session's: the read path's device verify runs there.
-    ``band_store`` (the disk tier) is always ``None`` until
-    ``core.bandstore`` is ported.
+    ``band_store`` (the sqlite tier's live store) is always ``None``
+    until that tier is ported (``ROADMAP.md`` queue 1 item 2).
     """
 
     version: int                # monotone publication counter
@@ -361,13 +368,20 @@ class SessionView:
 
 
 class DedupSession:
-    """Long-lived incremental dedup (the host backend).
+    """Long-lived incremental dedup over the host or streaming backend.
 
     ``ingest(chunk)`` clusters one chunk of documents into the session
     and returns a cumulative ``ClusterSnapshot``; ``ingest_stream``
-    dispatches chunk t+1 before merging chunk t.  Verification is exact
-    Jaccard or the signature estimate per ``config.exact_verification``,
-    as in ``DedupPipeline``.
+    dispatches chunk t+1 before merging chunk t.
+
+    * ``"host"``: an in-memory band matrix per chunk plus the cross-step
+      ``BandIndex``; verification is exact Jaccard or the signature
+      estimate per ``config.exact_verification``, as in
+      ``DedupPipeline``.
+    * ``"streaming"``: chunks go into a Design-2 band store
+      (``store_path``, flushed every ``chunk_docs`` documents) and each
+      merge re-scans the store; verification is the signature estimate
+      unless ``verifier`` is given.
 
     ``device`` (``"cuda"`` unless told; raises without a CUDA device
     unless ``"cpu"`` is passed) is where the pipeline stages and the
@@ -383,15 +397,16 @@ class DedupSession:
         config: DedupConfig | None = None,
         backend: str = "host",
         *,
+        store_path: str = ":memory:",
+        chunk_docs: int = 512,
         doc_id_base: int = 0,
         verifier: BatchVerifier | None = None,
         retention: RetentionPolicy | None = None,
         device="cuda",
+        _adopt_streaming=None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-        if backend == "streaming":
-            raise NotImplementedError(f"the streaming backend {_ITEM2}")
         if backend == "sharded":
             raise NotImplementedError(f"the sharded backend {_ITEM4}")
         self.config = config or DedupConfig()
@@ -442,11 +457,38 @@ class DedupSession:
         self._view_cache: SessionView | None = None
         self._view_key = None
         self._view_version = 0
-        self._impl = _HostBackend(self)
+        if backend == "host":
+            self._impl = _HostBackend(self)
+        else:
+            self._impl = _StreamingBackend(self, store_path=store_path,
+                                           chunk_docs=chunk_docs,
+                                           adopt=_adopt_streaming)
 
     @classmethod
-    def over_store(cls, sd, *, config=None, verifier=None):
-        raise NotImplementedError(f"DedupSession.over_store {_ITEM2}")
+    def over_store(cls, sd, *, config: DedupConfig | None = None,
+                   verifier: BatchVerifier | None = None) -> "DedupSession":
+        """Adopt an already-populated ``StreamingDedup`` (store and
+        signature cache) and cluster its contents as one step.
+
+        The adapter behind ``StreamingDedup.cluster``; the session runs
+        on ``sd.device`` and stays live: later ``ingest`` calls append
+        to the same store and union-find.  ``sd.n_docs`` may exceed the
+        contiguous allocation (resumed-ingest gaps); gap ids have no
+        store rows, so they stay singletons.
+        """
+        sess = cls(config=config or sd.config, backend="streaming",
+                   verifier=verifier, device=sd.device,
+                   _adopt_streaming=sd)
+        sess.allocator.next = sd.n_docs
+        sess.n_merged = sd.n_docs
+        if verifier is None and sd.n_ingested:
+            # The full (n_docs, M) global-id matrix, gap rows zero: row i
+            # stays doc i for the adopted docs and for later ingests.
+            sess._verifier = sd.default_verifier()
+        sess.acc.grow(sd.n_docs)
+        sess.acc.feed(sd.candidate_source(), verifier=sess._verifier)
+        sess.steps_ingested += 1
+        return sess
 
     # -- state -------------------------------------------------------------
 
@@ -524,7 +566,14 @@ class DedupSession:
         Built on the first read after a mutation and cached: the same
         object comes back until the session changes.  A query holding an
         older view keeps getting the same answers after later ingests.
+        A streaming session raises ``ValueError``: its retained state is
+        its band store, with no cross-step ``BandIndex`` to probe.
         """
+        if self.backend == "streaming":
+            raise ValueError(
+                "SessionView needs a backend that maintains the "
+                "cross-step BandIndex (host or sharded); the streaming "
+                "backend's retained state is its band store")
         key = self._view_state_key()
         if self._view_cache is not None and self._view_key == key:
             return self._view_cache
@@ -660,6 +709,16 @@ class DedupSession:
         if v is not None and hasattr(v, "release_rows"):
             v.release_rows(doc_ids)
 
+    def _compact_band_store(self, doc_ids, root_of) -> None:
+        """Rewrite evicted docs' band-store rows onto their cluster roots
+        (the sweep's hook; streaming backend only, the host backend's
+        retained band state being the ``band_index`` the sweep already
+        rewrote).  Keeps the phase-1 store from growing with evicted
+        history; see ``bandstore.Design2Store.compact``."""
+        compact = getattr(self._impl, "compact_store", None)
+        if compact is not None:
+            compact(doc_ids, root_of)
+
     def _representatives(self) -> list[int]:
         """Sorted current union-find roots.
 
@@ -785,7 +844,7 @@ class DedupSession:
             self._verifier.extend_signatures(sig)
 
     def _wants_exact(self) -> bool:
-        return self.config.exact_verification
+        return self.backend == "host" and self.config.exact_verification
 
     def _estimate_verifier(self) -> BatchVerifier:
         """The verifier for cross-step edges: the session's own (the
@@ -873,3 +932,88 @@ class _HostBackend:
         sess.steps_ingested += 1
         sess.stage_timings.update(merge_s=t2 - t0, cross_step_s=t2 - t1,
                                   cross_step_edges=n_edges)
+
+
+class _StreamingBackend:
+    """Design-2 band store phase 1 and band-major re-scan phase 2.
+
+    Owns (or adopts) a ``streaming.StreamingDedup`` for the store writes.
+    Each merge re-scans the whole store through the session accumulator,
+    whose verified-sim cache turns the re-scan into candidate
+    re-enumeration without re-verification: the paper's "repeat phase 2"
+    made incremental.
+
+    An owned store hands each flush's signature rows straight to the
+    session verifier (on the device unless the verify backend is numpy's),
+    so its host cache stays empty; an adopted one keeps its cache, which
+    its ``default_verifier`` may rebuild from.
+    """
+
+    def __init__(self, sess: DedupSession, *, store_path: str,
+                 chunk_docs: int, adopt=None):
+        self.sess = sess
+        self._owned = adopt is None
+        if adopt is not None:
+            self.sd = adopt
+        else:
+            from repro_torch.core.streaming import StreamingDedup
+
+            self.sd = StreamingDedup(sess.config, store_path=store_path,
+                                     chunk_docs=chunk_docs,
+                                     doc_id_base=sess.allocator.base,
+                                     device=sess.device)
+            self.sd.seeds = sess.seeds
+            self.sd._device_rows = []
+
+    def dispatch(self, chunk, tokenized: bool = False):
+        # The store write happens at merge time: a lookahead dispatch must
+        # not leak chunk t+1's rows into the scan that merges chunk t.
+        if self.sess.config.byte_ingest:
+            # Raw texts go to the device as bytes; pre-tokenized chunks are
+            # joined with spaces (tokens are alphanumeric, so the byte
+            # tokenizer recovers them exactly).
+            toks = [" ".join(t) for t in chunk] if tokenized else list(chunk)
+        else:
+            toks = chunk if tokenized else [shingle.tokenize(t)
+                                            for t in chunk]
+        return (self.sess.allocator.allocate(len(toks)), toks)
+
+    def merge(self, pending):
+        """Phase 1 for the chunk, then the re-scan.  Records ``phase1_s``
+        (the store's ``stage_timings`` split it), ``rescan_s`` (the
+        scan's ``read_band`` decodes and sorts), ``engine_s`` (the rest
+        of the feed: verify and unions) and ``merge_s`` in the session's
+        ``stage_timings``."""
+        base, toks = pending
+        sess = self.sess
+        assert base == self.sd.n_docs, (base, self.sd.n_docs)
+        t0 = time.perf_counter()
+        phase1 = {}
+        if toks:
+            self.sd.ingest_tokens(toks)
+            if self._owned:
+                sig = torch.cat(self.sd._device_rows)
+                self.sd._device_rows.clear()
+                if sess.config.resolved_backend() == "numpy":
+                    sig = u32_to_numpy(sig)
+            else:
+                sig = np.stack([self.sd._sig_cache[base + i]
+                                for i in range(len(toks))])
+            sess._retain(toks, sig)
+            phase1 = {f"phase1_{k}": v
+                      for k, v in self.sd.stage_timings.items()}
+        t1 = time.perf_counter()
+        sess.n_merged = max(sess.n_merged, base + len(toks))
+        sess.acc.grow(sess.n_docs)
+        source = self.sd.candidate_source()
+        sess.acc.feed(source, verifier=sess._verifier)
+        t2 = time.perf_counter()
+        sess.steps_ingested += 1
+        sess.stage_timings.update(
+            phase1_s=t1 - t0, rescan_s=source.scan_s,
+            engine_s=t2 - t1 - source.scan_s, merge_s=t2 - t0, **phase1)
+
+    def compact_store(self, doc_ids, root_of):
+        """The retention hook: rewrite evicted docs' store rows onto
+        their roots (``DedupSession._compact_band_store``)."""
+        self.sd.store.compact(doc_ids, root_of)

@@ -1,13 +1,18 @@
-"""Dedup command line of the port: the host mode of ``repro.launch.dedup``.
+"""Dedup command line of the port: the host and streaming modes of
+``repro.launch.dedup``.
 
 The corpus is split into ``--steps`` chunks and ingested through one
 ``core.session.DedupSession``; one report line gives the cumulative
 session counters, and ``--query N`` then re-queries N ingested notes
 and one novel note through a ``DedupQueryService`` over the warm
-session.  Signatures, bands and the ``kernel`` verify backend run on
-``--device`` (``cuda`` unless told: K1 with ``--fused-ingest``, K3 and
-K4 with ``--use-kernels``, K6 with ``--byte-ingest``, K2 with
-``--backend kernel``, K5 in ``refine`` with ``--use-kernels``).
+session (a streaming session has no view to query, and says so).
+``--streaming`` is the out-of-core two-phase mode: each step's notes go
+into a Design-2 band store at ``--store-path`` in flushes of ``--chunk``
+notes, and the store is re-scanned band-major.  Signatures, bands and
+the ``kernel`` verify backend run on ``--device`` (``cuda`` unless
+told: K1 with ``--fused-ingest``, K3 and K4 with ``--use-kernels``, K6
+with ``--byte-ingest``, K2 with ``--backend kernel``, K5 in ``refine``
+with ``--use-kernels``).
 ``--retain-budget`` bounds the session's retained rows and band keys
 (``RetentionPolicy.preset``) and ``--refine-every K`` runs the second
 clustering round every K steps.
@@ -17,9 +22,11 @@ clustering round every K steps.
       --estimate --backend kernel --query 64
   PYTHONPATH=src python -m repro_torch.launch.dedup --device cpu --estimate \\
       --steps 4 --retain-budget small --refine-every 2
+  PYTHONPATH=src python -m repro_torch.launch.dedup --streaming --chunk 512 \\
+      --steps 4 --fused-ingest --estimate --use-kernels
 
-The streaming and sharded modes and the sqlite store are not ported yet:
-those flags exit with a message naming their ``ROADMAP.md`` queue item.
+The sharded mode and the sqlite store tier are not ported yet: those
+flags exit with a message naming their ``ROADMAP.md`` queue item.
 """
 from __future__ import annotations
 
@@ -52,11 +59,17 @@ def run_query_demo(sess, notes, n: int):
     """Read-path demo: re-query ``n`` ingested notes and one novel note.
 
     Stands up a ``DedupQueryService`` over the warm session and prints
-    one summary line.  Queries never mutate the session.
+    one summary line.  Queries never mutate the session.  A session that
+    cannot publish a ``SessionView`` (streaming: no cross-step band
+    index) is reported and skipped.
     """
     from repro_torch.serving.dedup_service import DedupQueryService
 
-    view = sess.view()
+    try:
+        view = sess.view()
+    except ValueError as e:
+        print(f"query demo skipped: {e}")
+        return
     svc = DedupQueryService(sess)
     n = min(n, len(notes))
     novel = "entirely unrelated query text " * 12
@@ -72,10 +85,9 @@ def run_query_demo(sess, notes, n: int):
 
 
 _NOT_PORTED = {
-    "streaming": "--streaming (the out-of-core two-phase mode) is not "
-                 "ported yet: ROADMAP.md queue 1 item 2",
     "sharded": "--sharded is not ported yet: ROADMAP.md queue 1 item 4",
-    "store": "--store sqlite is not ported yet: ROADMAP.md queue 1 item 2",
+    "store": "--store sqlite (the sqlite band-store tier) is not ported "
+             "yet: ROADMAP.md queue 1 item 2",
 }
 
 
@@ -112,7 +124,12 @@ def main(argv=None):
                          "the warm session and re-query N ingested notes "
                          "plus one novel note")
     ap.add_argument("--streaming", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1 item 2)")
+                    help="two-phase out-of-core mode over a band store")
+    ap.add_argument("--chunk", type=int, default=128,
+                    help="streaming ingest chunk size")
+    ap.add_argument("--store-path", default=":memory:",
+                    help="sqlite database path of the streaming band store "
+                         "(default :memory:)")
     ap.add_argument("--sharded", action="store_true",
                     help="not ported yet (ROADMAP.md queue 1 item 4)")
     ap.add_argument("--retain-budget", default="none",
@@ -125,12 +142,11 @@ def main(argv=None):
                          "(DedupSession.refine) every K ingest steps "
                          "(0 = off)")
     ap.add_argument("--store", default=None, choices=("memory", "sqlite"),
-                    help="band-store tier; only memory is ported (ROADMAP.md "
-                         "queue 1 item 2).  Default: $REPRO_STORE_BACKEND "
-                         "or memory")
+                    help="band-store tier; only memory is ported (sqlite: "
+                         "ROADMAP.md queue 1 item 2).  Default: "
+                         "$REPRO_STORE_BACKEND or memory")
     args = ap.parse_args(argv)
-    for flag, given in (("streaming", args.streaming),
-                        ("sharded", args.sharded),
+    for flag, given in (("sharded", args.sharded),
                         ("store", args.store == "sqlite")):
         if given:
             ap.error(_NOT_PORTED[flag])
@@ -164,6 +180,39 @@ def main(argv=None):
         verify_batch=args.batch,
         # None falls back to the field default ($REPRO_STORE_BACKEND).
         **({"store": args.store} if args.store else {}))
+
+    if args.streaming:
+        from repro_torch.core.shingle import tokenize
+        from repro_torch.core.verify import ExactJaccardVerifier
+
+        verifier = None
+        if cfg.byte_ingest:
+            # Raw texts stream to the device: there is nothing to
+            # tokenize on the host (and byte ingest is estimate mode).
+            stream_chunks = chunks
+            tokenized = False
+        else:
+            # One tokenize pass: the chunks go in pre-tokenized, and the
+            # exact verifier (the streaming backend's own verifier is the
+            # signature estimate) is built over the same token lists.
+            toks = [tokenize(t) for t in notes]
+            if cfg.exact_verification:
+                verifier = ExactJaccardVerifier.from_token_lists(
+                    toks, cfg.ngram)
+            stream_chunks = [toks[a:b] for a, b in zip(bounds, bounds[1:])]
+            tokenized = True
+        sess = DedupSession(cfg, backend="streaming", chunk_docs=args.chunk,
+                            verifier=verifier, store_path=args.store_path,
+                            retention=retention, device=args.device)
+        t0 = time.perf_counter()
+        for snap in sess.ingest_stream(stream_chunks, tokenized=tokenized):
+            pass
+        dt = time.perf_counter() - t0
+        report_session(f"streaming[{args.steps} step(s)]", snap, dt)
+        if args.query:
+            run_query_demo(sess, notes, args.query)
+        return
+
     sess = DedupSession(cfg, backend="host", retention=retention,
                         device=args.device)
     t0 = time.perf_counter()

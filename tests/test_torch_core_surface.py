@@ -1,5 +1,6 @@
 """The rest of ``repro.core``'s surface in the port, held against the
-reference's functions: ``candidates.EdgeStreamSource``, ``lsh.sort_band``,
+reference's functions: ``candidates.EdgeStreamSource`` and
+``StoreBandSource``, ``lsh.sort_band``,
 ``run_heads`` and ``star_edges``, ``unionfind.connected_components`` and
 ``cluster_min_score_audit``.
 """
@@ -14,7 +15,8 @@ import repro.core.unionfind as ref_unionfind
 import repro.core as ref_core
 import repro_torch.core as core
 from repro_torch.core import lsh, retention, unionfind
-from repro_torch.core.candidates import EdgeStreamSource
+from repro_torch.core.bandstore import Design2Store
+from repro_torch.core.candidates import EdgeStreamSource, StoreBandSource
 from repro_torch.core.hashing import u32_from_numpy, u32_to_numpy
 
 
@@ -100,10 +102,36 @@ def test_edge_stream_source_matches_reference():
         (want.num_edges, want.groups_consumed, want.num_bands)
 
 
+def test_store_band_source_matches_reference():
+    """``StoreBandSource`` over a Design-2 store yields the reference's
+    runs over the same store, band by band (ids above 2**31 kept)."""
+    rng = np.random.RandomState(9)
+    bands = rng.randint(0, 3, size=(30, 4, 2)).astype(np.uint32)
+    ids = np.arange(30, dtype=np.int64) + np.int64(2**31 - 10)
+    store = Design2Store(part_size=7)
+    store.put_band_rows(ids, bands)
+    store.commit()
+    got = StoreBandSource(store, 4, int(ids[-1]) + 1)
+    want = ref_candidates.StoreBandSource(store, 4, int(ids[-1]) + 1)
+    assert (got.num_docs, got.num_bands) == (want.num_docs, want.num_bands)
+    got_runs, want_runs = list(got.iter_bands()), list(want.iter_bands())
+    assert len(got_runs) == len(want_runs) == 4
+    for a, b in zip(got_runs, want_runs):
+        assert a.band_id == b.band_id
+        for f in ("sorted_vals", "sorted_docs", "run_starts", "run_ends"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert got.scan_s > 0.0
+    np.testing.assert_array_equal(core.candidate_pairs(got),
+                                  ref_candidates.candidate_pairs(want))
+
+
 def test_exports():
     assert core.connected_components is unionfind.connected_components
     assert core.EdgeStreamSource is EdgeStreamSource
-    assert {"connected_components", "EdgeStreamSource"} <= set(core.__all__)
+    assert core.StoreBandSource is StoreBandSource
+    assert {"connected_components", "EdgeStreamSource",
+            "StoreBandSource"} <= set(core.__all__)
+    assert "StoreBandSource" in ref_core.__all__
     for name in ("BandBloomFilter", "RetentionManager", "RetentionPolicy"):
         assert name in core.__all__, name
         assert getattr(core, name) is getattr(retention, name)

@@ -680,6 +680,54 @@ def test_retention_session_with_refine_on_card_matches_cpu(cuda):
                        lsh.band_values(rows, cfg.rows_per_band))
 
 
+def test_streaming_session_on_card_matches_cpu(cuda, tmp_path):
+    """A 256-note streaming session (K1 once a flush, K2) over a store
+    file equals the same session on the CPU in labels, pairs and the
+    store's entry count, with and without an eviction window."""
+    from repro_torch.core import RetentionPolicy
+
+    notes, _ = inject_near_duplicates(make_i2b2_like(160, seed=5), 96,
+                                      frac_low=0.0, frac_high=0.005, seed=6)
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel")
+    for run, policy in enumerate((None, RetentionPolicy(lru_window=16))):
+        out = {}
+        for device in ("cpu", "cuda"):
+            k1.launches = k2.launches = 0
+            sess = DedupSession(cfg, backend="streaming", chunk_docs=32,
+                                retention=policy, device=device,
+                                store_path=str(tmp_path / f"{device}{run}.db"))
+            for chunk in np.array_split(np.arange(len(notes)), 4):
+                snap = sess.ingest([notes[i] for i in chunk])
+            out[device] = (snap.labels.tolist(), snap.pairs, snap.evicted,
+                           sess._impl.sd.store.n_entries())
+            launched = (k1.launches, k2.launches)
+        assert out["cuda"] == out["cpu"]
+        assert launched[0] == len(notes) // 32 and launched[1] > 0
+        assert (out["cuda"][2] > 0) == (policy is not None)
+
+
+def test_streaming_phase1_keeps_signatures_on_card(cuda):
+    """An owned streaming session hands each flush's K1 rows to the
+    verifier on the card: the phase-1 host cache stays empty, the
+    verifier has no host copy, and its device rows equal K1's output."""
+    notes, _ = inject_near_duplicates(make_i2b2_like(60, seed=3), 40, seed=4)
+    cfg = DedupConfig(fused_ingest=True, exact_verification=False,
+                      verify_backend="kernel")
+    sess = DedupSession(cfg, backend="streaming", chunk_docs=16,
+                        device=cuda)
+    for chunk in np.array_split(np.arange(len(notes)), 3):
+        sess.ingest([notes[i] for i in chunk])
+    v = sess.verifier
+    assert len(sess._impl.sd._sig_cache) == 0
+    assert v._host is None and v._dev.device.type == "cuda"
+    pipe = DedupPipeline(cfg, device=cuda)
+    toks = pipe.tokenize(notes)
+    pad = shingle.pow2_bucket(max(len(t) for t in toks))
+    want, _ = pipe._device_arrays(toks, pad)
+    assert torch.equal(v._device_signatures(), want)
+
+
 def test_serve_batch_with_flash_on_card_matches_cpu(cuda):
     cfg = get_reduced("h2o-danube-1.8b").with_(use_flash_attention=True)
     model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")

@@ -30,6 +30,7 @@ def test_kernel_module_imports_first_in_a_fresh_interpreter(module):
 
 @pytest.mark.parametrize("module", ["core.session", "core.query",
                                     "core.sanitize", "core.retention",
+                                    "core.bandstore", "core.streaming",
                                     "serving.dedup_service", "launch.dedup"])
 def test_session_module_imports_first_without_jax(module):
     code = (f"import sys, repro_torch.{module}; "

@@ -2,7 +2,8 @@
 
 Both run in process on the same flags (the port with ``--device cpu``);
 their report lines must agree in every count, the retention clause
-included.  The flags of later slices exit with a message naming their
+included, in host and streaming mode.  The flags of later slices (the
+sharded mode, the sqlite store tier) exit with a message naming their
 ROADMAP.md queue item.
 """
 import re
@@ -45,8 +46,23 @@ def test_retention_and_refine_report_matches_reference(capsys):
     assert "rows retained (" in got[1] and "refine merges)" in got[1]
 
 
+@pytest.mark.parametrize("mode", [[], ["--byte-ingest"]])
+def test_streaming_report_matches_reference(mode, capsys):
+    """``--streaming`` in token mode (exact, through the external exact
+    verifier) and byte mode (K6 and K1's plain versions, estimate)
+    reports the reference's counts, and skips the query demo as the
+    reference does."""
+    common = ["--notes", "40", "--dups", "25", "--steps", "3", "--streaming",
+              "--chunk", "16", "--query", "4"] + mode
+    got = _report(dedup.main, common + ["--device", "cpu"], capsys)
+    want = _report(ref_dedup.main, common, capsys)
+    assert got == want
+    assert got[1].startswith("streaming[3 step(s)]: 65 docs ingested")
+    assert got[2].startswith("query demo skipped: ")
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--streaming"], "item 2"),
+    (["--streaming", "--store", "sqlite"], "item 2"),
     (["--sharded"], "item 4"),
     (["--store", "sqlite"], "item 2"),
 ])

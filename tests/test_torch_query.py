@@ -264,8 +264,13 @@ def test_view_arrays_are_frozen():
 
 
 def test_later_backends_have_no_session_to_view():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        DedupSession(DedupConfig(), backend="streaming", device="cpu")
+    """A streaming session keeps its state in its band store and has no
+    view to publish, as the reference's (``test_query_service.py``)."""
+    sess = DedupSession(DedupConfig(store="memory"), backend="streaming",
+                        device="cpu")
+    sess.ingest(_corpus(10, 5))
+    with pytest.raises(ValueError, match="band store"):
+        sess.view()
 
 
 # -- retention: eviction and Bloom compaction ------------------------------------

@@ -223,15 +223,30 @@ def test_pipeline_run_through_the_session_keeps_its_result():
 
 
 def test_later_slices_raise_not_implemented():
-    """The streaming and sharded backends and ``over_store`` wait for
-    their queue items; retention, ``refine`` and the bounded
-    ``BandIndex`` are ported (``tests/test_torch_retention.py``)."""
-    cfg = DedupConfig()
-    for kw in (dict(backend="streaming"), dict(backend="sharded")):
-        with pytest.raises(NotImplementedError, match="queue 1 item"):
-            DedupSession(cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        DedupSession.over_store(None)
+    """The sharded backend waits for its queue item; the streaming backend
+    and ``over_store`` are ported and equal the reference's
+    (``tests/test_torch_streaming.py`` has the rest), as are retention,
+    ``refine`` and the bounded ``BandIndex``
+    (``tests/test_torch_retention.py``)."""
+    from repro_torch.core.streaming import StreamingDedup
+    import repro.core.streaming as ref_streaming
+
+    cfg = DedupConfig(store="memory")
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        DedupSession(cfg, device="cpu", backend="sharded")
+    notes = _corpus(24, 12, seed=2)
+    ref_cfg, port_cfg = _configs(exact_verification=False)
+    ref = ref_session.DedupSession(ref_cfg, backend="streaming", chunk_docs=8)
+    port = DedupSession(port_cfg, backend="streaming", chunk_docs=8,
+                        device="cpu")
+    for chunk in _chunks(notes, 2):
+        _assert_same(port.ingest(chunk), ref.ingest(chunk))
+    sd = StreamingDedup(port_cfg, chunk_docs=8, device="cpu")
+    ref_sd = ref_streaming.StreamingDedup(ref_cfg, chunk_docs=8)
+    sd.ingest(notes)
+    ref_sd.ingest(notes)
+    _assert_same(DedupSession.over_store(sd).snapshot(),
+                 ref_session.DedupSession.over_store(ref_sd).snapshot())
     assert BandIndex(4, key_budget=8).stats()["bloom_bytes"] == 0
     assert DedupSession(cfg, device="cpu").refine().refine_merges == 0
     with pytest.raises(ValueError):
