@@ -79,6 +79,21 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   K1 launch, then adopted by ``over_store`` and fed a copy of doc 0;
   T5 the CLI's ``--streaming`` with H4's duplicate count.
   ``launches_phase_t`` on the K1, K2 and K6 lines.
+* Phase Q, the sqlite band-store tier, each store a file in a temporary
+  directory: Q1 H1's notes and chunks through a host session with
+  ``store="sqlite"`` (its cross-step index a ``SqliteBandStore``; K1
+  once a chunk, K2), labels and (a, b, sim) list equal to H1's, with
+  each step's cross-step time and edges and the store's counters; Q2
+  H3's queries through a ``kernel`` ``DedupQueryService`` over Q1's
+  view, probed through the store's Bloom-first ``probe_keys``, equal to
+  H3's answers, with the probe's Bloom accounting; Q3 ``r3_notes``
+  through a sqlite streaming session, append-only and under T3's
+  window, verified off disk by ``DiskSignatureVerifier`` (K2', no K2),
+  equal to T3's memory-tier sessions, every sim equal to K2's plain
+  counts / M on the rows read back from disk, the window's signature
+  rows and store entries shrunk to T3's; K2' timed on one verify batch
+  of those rows; Q4 the CLI's ``--streaming --store sqlite`` with H4's
+  duplicate count.  ``launches_phase_q`` on the K1, K2 and K2' lines.
 * Phase S, the sharded step (``core.dist_lsh``) on the card over an
   NCCL process group of one rank, on phase A's packed matrix: stage 2
   on the host merge with K2, then on the device with K7 (masked pair
@@ -215,7 +230,7 @@ def main() -> int:
     for line in (k1_line, k2_line, k6_line):
         line["launches_phase_h"] = {path: counts[line["name"]]
                                     for path, counts in h_launches.items()}
-    # Phase R takes H1's record; phase T compares against it too.
+    # Phase R takes H1's record; phases T and Q compare against it too.
     ctx["t_h1"] = {k: ctx["h1"][k] for k in ("labels", "pairs", "summary")}
     t0 = time.perf_counter()
     r_launches, k5_refine = phase_r(torch, clock_hz, notes, prov, ctx)
@@ -232,6 +247,13 @@ def main() -> int:
     for line in (k1_line, k2_line, k6_line):
         line["launches_phase_t"] = {path: counts[line["name"]]
                                     for path, counts in t_launches.items()}
+    t0 = time.perf_counter()
+    q_launches, k2p_batch = phase_q(torch, clock_hz, notes, prov, ctx)
+    emit(phase_q={"seconds": time.perf_counter() - t0,
+                  "launches": q_launches})
+    for line in (k1_line, k2_line):
+        line["launches_phase_q"] = {path: counts[line["name"]]
+                                    for path, counts in q_launches.items()}
     import torch.distributed as dist
 
     # One NCCL group of one rank: the sharded step's collectives run on
@@ -247,11 +269,16 @@ def main() -> int:
     lines = [k1_line, k2_line, k3_line, k4_line, k5_line, k6_line, k7_line]
     for line in lines:
         line["paper_scale"] = paper[line["name"]]
+    # K2''s main path is phase Q3's disk verify: one of its batches
+    # timed, the append-only run's launches; phase B's run at paper scale.
     lines.append({"name": "pair_estimate", "route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/sigjaccard_masked.cu",
                   "replaces": "src/repro/kernels/sigjaccard.py:53",
-                  "library_ms": None, "match": True,
-                  **paper["pair_estimate"]})
+                  "library_ms": None, "match": True, **k2p_batch,
+                  "launches": q_launches["q3_append_only"]["pair_estimate"],
+                  "launches_phase_q": {path: counts["pair_estimate"]
+                                       for path, counts in q_launches.items()},
+                  "paper_scale": paper["pair_estimate"]})
     torch.cuda.empty_cache()
     k8_shapes = phase_f(torch, clock_hz, lib_path, log)
     lines.append(phase_m(torch, k8_shapes))
@@ -1188,7 +1215,8 @@ def canonical(labels):
     return [first.setdefault(int(r), i) for i, r in enumerate(labels)]
 
 
-def session_run(torch, cfg, notes, want, device: str, counters: dict) -> tuple:
+def session_run(torch, cfg, notes, want, device: str, counters: dict, *,
+                store_path: str = ":memory:") -> tuple:
     """One ``DedupSession.ingest_stream`` over ``H_CHUNKS`` chunks, held
     against the one-shot ``want`` (a ``DedupResult`` of the same config)
     and, pair by pair, against K2's plain counts / M.
@@ -1198,14 +1226,16 @@ def session_run(torch, cfg, notes, want, device: str, counters: dict) -> tuple:
     agree is what the reference's session contract pins: the partition,
     the keep mask and the similarity of every pair both evaluate.
     ``counters`` maps names to kernel modules; their launches are set to
-    0 before the run and returned after it."""
+    0 before the run and returned after it.  A sqlite-tier session keeps
+    its cross-step index at ``store_path``, and each step also records
+    the index's write counters."""
     import numpy as np
 
     from repro_torch.core.session import DedupSession
 
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    sess = DedupSession(cfg, device=device)
+    sess = DedupSession(cfg, device=device, store_path=store_path)
     size = -(-len(notes) // H_CHUNKS)
     chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
     steps = []
@@ -1219,6 +1249,9 @@ def session_run(torch, cfg, notes, want, device: str, counters: dict) -> tuple:
                       "cross_step_edges": t["cross_step_edges"],
                       "cross_step_s": t["cross_step_s"],
                       "pairs_evaluated": snap.stats.pairs_evaluated})
+        if hasattr(sess.band_index, "n_writes"):
+            steps[-1].update(store_n_writes=sess.band_index.n_writes,
+                             store_write_bytes=sess.band_index.write_bytes)
         t0 = now
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in counters.items()}
@@ -1489,6 +1522,11 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
             check(run_launches["byte_token_hashes"] == timing["microbatches"],
                   "query_bytes: K6 once a microbatch")
         launches[f"h3_{name}"] = run_launches
+        if not by_bytes:
+            # Phase Q's sqlite read path answers the same queries.
+            ctx["h3"] = {"queries": queries, "results": got,
+                         "median_microbatch_ms":
+                             timing["median_microbatch_ms"]}
         h3[name] = {**timing, "launches": run_launches,
                     "numpy_twin": twin,
                     "duplicates": sum(r.is_duplicate for r in got),
@@ -1919,7 +1957,7 @@ def phase_t(torch, notes: list[str], prov: list, ctx: dict,
     cfg = DedupConfig(fused_ingest=True, use_kernels=True,
                       exact_verification=False, verify_backend="kernel",
                       verify_batch="band")
-    h1, one = ctx.pop("t_h1"), ctx["res"]
+    h1, one = ctx["t_h1"], ctx["res"]
     size = -(-len(notes) // H_CHUNKS)
     chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
     notes3 = r3_notes(notes, prov)
@@ -2019,6 +2057,14 @@ def phase_t(torch, notes: list[str], prov: list, ctx: dict,
         check(out[device]["evicted"] > 0, "T3 evicted rows")
         check(out[device]["n_entries"] < t3p["store"]["n_entries"],
               "T3: the compacted store holds fewer entries")
+        # Phase Q's sqlite streaming sessions run on the same notes.
+        ctx["t3"] = {"plain": {"labels": plain.labels.tolist(),
+                               "pairs": plain.pairs,
+                               "n_entries": t3p["store"]["n_entries"],
+                               "ingest_s": t3p["ingest_s"]},
+                     "window": {k: out[device][k] for k in (
+                         "labels", "pairs", "evicted", "retained_rows",
+                         "n_entries")}}
         emit(phase_t3={"notes": len(notes3), "lru_window": T3_WINDOW,
                        "append_only": t3p, "card": out[device]["summary"],
                        "cpu_s": out["cpu"]["summary"]["ingest_s"],
@@ -2096,6 +2142,208 @@ def phase_t(torch, notes: list[str], prov: list, ctx: dict,
     emit(phase_t5={"argv": argv[1:], "seconds": seconds, "report": report,
                    "h4_report": host[0]})
     return launches
+
+
+# -- phase Q: the sqlite band-store tier ---------------------------------------------
+
+def phase_q(torch, clock_hz: float, notes: list[str], prov: list, ctx: dict,
+            device: str = "cuda") -> tuple[dict, dict]:
+    """The sqlite tier, each store a file in a temporary directory.  Q1: a
+    host session with H1's config and ``store="sqlite"`` over H1's notes
+    and chunks (K1 once a chunk, K2), its cross-step index on disk,
+    equal to H1 in labels and (a, b, sim) list.  Q2: H3's queries
+    through a ``kernel`` ``DedupQueryService`` over Q1's view, whose
+    probe is the store's Bloom-first ``probe_keys``, equal to H3's
+    answers over H1's session.  Q3: ``r3_notes`` through a sqlite
+    streaming session, append-only and under T3's window, verified off
+    disk by ``DiskSignatureVerifier`` (K2', no K2), equal to T3's
+    memory-tier sessions; every sim equals K2's plain counts / M on the
+    rows read back from disk.  Q4: the CLI's ``--streaming --store
+    sqlite`` with H4's duplicate count.  Returns each path's K1, K2 and
+    K2' launches, and K2''s time on a verify batch of Q3's rows."""
+    import re
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.core import query
+    from repro_torch.core.bandstore import (
+        DiskSignatureVerifier,
+        SqliteBandStore,
+    )
+    from repro_torch.core.hashing import u32_from_numpy
+    from repro_torch.core.minhash import estimate_from_counts
+    from repro_torch.core.pipeline import DedupConfig
+    from repro_torch.core.retention import RetentionPolicy
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+    from repro_torch.serving import DedupQueryService
+
+    counters = {"fused_ingest": (k1, "launches"),
+                "pair_counts": (k2, "launches"),
+                "pair_estimate": (k2, "masked_launches")}
+    launches = {}
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel",
+                      verify_batch="band", store="sqlite")
+    h1, h3, t3 = ctx.pop("t_h1"), ctx.pop("h3"), ctx.pop("t3")
+    notes3 = r3_notes(notes, prov)
+    size3 = -(-len(notes3) // H_CHUNKS)
+    chunks3 = [notes3[i : i + size3] for i in range(0, len(notes3), size3)]
+    flushes3 = sum(-(-len(c) // T_CHUNK_DOCS) for c in chunks3)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # Q1: H1 with its cross-step index on disk.
+        sess, snap, q1 = session_run(torch, cfg, notes, ctx["res"], device,
+                                     counters,
+                                     store_path=os.path.join(tmp, "q1.db"))
+        launches["q1_session"] = q1["launches"]
+        index = sess.band_index
+        check(isinstance(index, SqliteBandStore),
+              "Q1: the cross-step index is a SqliteBandStore")
+        check(np.array_equal(snap.labels, h1["labels"]),
+              "Q1 labels == H1's, id for id")
+        check(snap.pairs == h1["pairs"], "Q1 (a, b, sim) list == H1's")
+        check(q1["launches"]["fused_ingest"] == H_CHUNKS
+              and q1["launches"]["pair_counts"] > 0,
+              "Q1: K1 once a chunk, and K2")
+        q1.update(notes=len(notes), store={
+            "stats": index.stats(), "n_writes": index.n_writes,
+            "write_bytes": index.write_bytes},
+            h1_ingest_s=h1["summary"]["ingest_s"])
+        emit(phase_q1=q1)
+
+        # Q2: H3's queries through the store's Bloom-first probe.
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        svc = DedupQueryService(sess, backend="kernel",
+                                max_batch=H_MICROBATCH)
+        got, timing = serve_queries(torch, svc, h3["queries"], device)
+        run_launches = {n: getattr(m, a) for n, (m, a) in counters.items()}
+        launches["q2_query"] = run_launches
+        view = sess.view()
+        check(view.band_store is index and view.band_maps == (),
+              "Q2: the view probes the live store")
+        check(got == h3["results"], "Q2 answers == H3's over H1's session")
+        check(run_launches["fused_ingest"] == timing["microbatches"]
+              and run_launches["pair_counts"] > 0,
+              "Q2: K1 once a microbatch, and K2, on the read path")
+        q_bands = query_bands(sess, h3["queries"])
+        probe = []
+        for s in range(0, len(q_bands), H_MICROBATCH):
+            t0 = time.perf_counter()
+            query.probe_candidates(view, q_bands[s : s + H_MICROBATCH])
+            probe.append(time.perf_counter() - t0)
+        emit(phase_q2={**timing, "queries": len(h3["queries"]),
+                       "launches": run_launches,
+                       "h3_median_microbatch_ms": h3["median_microbatch_ms"],
+                       "probe_stats": index.probe_stats(q_bands),
+                       "probe_median_microbatch_ms":
+                           float(np.median(probe)) * 1e3})
+        del sess, snap, svc, view, got, index, h1, h3
+
+        # Q3: streaming over a sqlite store, append-only and windowed.
+        out = {}
+        for name, policy in (("append_only", None),
+                             ("window", RetentionPolicy(
+                                 lru_window=T3_WINDOW))):
+            s3, snap3, summary = streaming_run(
+                torch, cfg, chunks3, device, counters, retention=policy,
+                store_path=os.path.join(tmp, f"q3_{name}.db"))
+            launches[f"q3_{name}"] = summary["launches"]
+            want = t3["plain" if policy is None else "window"]
+            check(snap3.labels.tolist() == want["labels"]
+                  and snap3.pairs == want["pairs"],
+                  f"Q3 {name}: labels and pairs == T3's memory tier")
+            v, store = s3.verifier, s3._impl.sd.store
+            check(isinstance(v, DiskSignatureVerifier)
+                  and v.device.type == device,
+                  f"Q3 {name}: verified off disk on the {device}")
+            check(summary["launches"]["fused_ingest"] == flushes3
+                  and summary["launches"]["pair_counts"] == 0
+                  and summary["launches"]["pair_estimate"] > 0,
+                  f"Q3 {name}: K1 once a flush, K2' and no K2")
+            summary.update(
+                n_signatures=store.n_signatures(),
+                cache_hits=v.cache_hits, cache_misses=v.cache_misses,
+                verify_batches=v.n_batches,
+                verify_ms_per_batch=v.seconds / max(v.n_batches, 1) * 1e3)
+            out[name] = (s3, snap3, summary)
+        s3, snap3, plain = out["append_only"]
+        store = s3._impl.sd.store
+        rows = np.stack([store.get_signature(d) for d in range(len(notes3))])
+        pairs = np.array([(a, b) for a, b, _ in snap3.pairs], dtype=np.int64)
+        sims = np.array([s for _, _, s in snap3.pairs], dtype=np.float32)
+        sig = u32_from_numpy(rows, device)
+        M = sig.shape[1]
+        counts = k2.pair_counts_plain(sig, torch.from_numpy(pairs[:, 0]).to(
+            device), torch.from_numpy(pairs[:, 1]).to(device))
+        check(np.array_equal(sims, counts.cpu().numpy().astype(np.float32)
+                             / np.float32(M)),
+              "Q3 sims == K2 plain counts / M on the rows read from disk")
+        _, snapw, window = out["window"]
+        storew = out["window"][0]._impl.sd.store
+        check(snapw.evicted == t3["window"]["evicted"] > 0,
+              "Q3 window: T3's evictions")
+        check(storew.n_signatures() == snapw.retained_rows
+              == t3["window"]["retained_rows"] < store.n_signatures(),
+              "Q3 window: signature rows shrink to T3's retained rows")
+        check(storew.n_entries() == t3["window"]["n_entries"]
+              < store.n_entries() == t3["plain"]["n_entries"],
+              "Q3 window: store entries shrink to T3's")
+        # K2' alone on one verify batch of Q3's pairs, at its real size.
+        P = min(VERIFY_BATCH, len(pairs))
+        a, b = sig[torch.from_numpy(pairs[:P, 0]).to(device)], \
+            sig[torch.from_numpy(pairs[:P, 1]).to(device)]
+        every = torch.ones(P, dtype=torch.bool, device=device)
+
+        def plain_k2p():
+            return estimate_from_counts(
+                k2.masked_pair_counts_plain(a, b, every), M)
+
+        got = k2.pair_estimate(a, b)
+        want = plain_k2p()
+        check(torch.equal(got, want), "K2' on a Q3 batch == its plain version")
+        batch = {"shape": {"P": P, "M": M},
+                 "max_abs_err": float((got - want).abs().max()),
+                 "ms": cuda_ms(torch, lambda: k2.pair_estimate(a, b), 20),
+                 "plain_ms": cuda_ms(torch, plain_k2p, 5),
+                 "verify_ms_per_batch": plain["verify_ms_per_batch"],
+                 **k7_bound(torch, every, M, clock_hz)}
+        if device == "cuda":
+            batch["device_ms"] = graph_ms(
+                torch, lambda: k2.pair_estimate(a, b), 20)
+        emit(phase_q3={"notes": len(notes3), "lru_window": T3_WINDOW,
+                       "append_only": plain, "window": window,
+                       "t3_append_only_ingest_s": t3["plain"]["ingest_s"],
+                       "k2_prime_batch": batch})
+        del out, s3, snap3, store, storew, snapw, rows, sig, a, b
+
+        # Q4: the CLI's streaming mode over a sqlite store.
+        argv = [sys.executable, "-m", "repro_torch.launch.dedup", "--notes",
+                "2000", "--dups", "1000", "--steps", "4", "--streaming",
+                "--estimate", "--fused-ingest", "--use-kernels", "--chunk",
+                str(T_CHUNK_DOCS), "--store", "sqlite", "--store-path",
+                os.path.join(tmp, "q4.db"), "--device", device]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                              env={**os.environ,
+                                   "PYTHONPATH": str(ROOT / "src")},
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+    report = proc.stdout.splitlines()
+    check(proc.returncode == 0,
+          f"sqlite streaming dedup CLI exits 0: {proc.stderr[-2000:]}")
+    line = [ln for ln in report if ln.startswith("streaming[4 step(s)]: ")]
+    check(len(line) == 1, "sqlite streaming dedup CLI prints its report line")
+    dups = re.compile(r" (\d+) duplicates,")
+    host = [ln for ln in ctx["h4_report"] if ln.startswith("host[")]
+    check(dups.search(line[0]).group(1) == dups.search(host[0]).group(1),
+          "Q4: sqlite streaming CLI duplicates == H4's host-mode duplicates")
+    emit(phase_q4={"argv": argv[1:], "seconds": seconds, "report": report,
+                   "h4_report": host[0]})
+    return launches, batch
 
 
 # -- phase S: the sharded step ----------------------------------------------------

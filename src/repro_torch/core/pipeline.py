@@ -75,10 +75,6 @@ class DedupConfig:
                 "byte_ingest never builds host token lists, so exact "
                 "Jaccard verification is impossible; set "
                 "exact_verification=False (signature-estimate mode)")
-        if self.store == "sqlite":
-            raise NotImplementedError(
-                "store='sqlite' is not ported yet (ROADMAP.md, queue 1 "
-                "item 2: the sqlite tier, SqliteBandStore)")
 
     @property
     def num_bands(self) -> int:

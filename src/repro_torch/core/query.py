@@ -70,12 +70,18 @@ def probe_candidates(
     Bloom-only hit counts: a key missing from a band's map that the
     band's filter holds counts one for its query.  A pure read of the
     view's frozen bucket maps and filters: nothing is inserted, no
-    recency moves, and the session's own counter is untouched.  Every
-    batch walks the host dicts, one ``get`` a (query, band): a device
-    searchsorted probe lost to it at every batch size measured on the
-    H100 (``chip_smoke.py`` phase H3, ``PERF.md``): each of its hits
-    still needs the dict's bucket, and its index is rebuilt for every
-    published view.  A band's filter is read for the whole batch at once.
+    recency moves, and the session's own counter is untouched.
+
+    A sqlite-tier view delegates to its store's pure Bloom-first
+    ``probe_keys`` (a primary-filter miss never touches disk, the hits
+    pay one batched SELECT a band), and the candidates are clipped to
+    the view's ``n_docs``, so docs ingested after its publication stay
+    invisible to it.  Otherwise every batch walks the host dicts, one
+    ``get`` a (query, band): a device searchsorted probe lost to it at
+    every batch size measured on the H100 (``chip_smoke.py`` phase H3,
+    ``PERF.md``): each of its hits still needs the dict's bucket, and
+    its index is rebuilt for every published view.  A band's filter is
+    read for the whole batch at once.
     """
     bands = np.asarray(bands)
     if bands.ndim != 3 or bands.shape[1] != view.num_bands:
@@ -83,6 +89,9 @@ def probe_candidates(
             f"expected (Q, {view.num_bands}, 2) bands, got {bands.shape}")
     if bands.dtype != np.uint32:
         raise TypeError(f"expected uint32 band values, got {bands.dtype}")
+    if view.band_store is not None:
+        cands, filter_hits = view.band_store.probe_keys(bands)
+        return [c[c < view.n_docs] for c in cands], filter_hits
     q = len(bands)
     cands: list[set[int]] = [set() for _ in range(q)]
     filter_hits = [0] * q

@@ -9,7 +9,10 @@ arrives in chunks:
 * global doc-id allocation (``DocIdAllocator``);
 * the retained per-doc rows, in one growing verifier (signature rows in
   estimate mode, interned n-gram id rows in exact mode);
-* a retained band index (``BandIndex``) for cross-step candidates.
+* a retained band index for cross-step candidates: the in-RAM
+  ``BandIndex``, or with ``DedupConfig(store="sqlite")`` a
+  ``bandstore.SqliteBandStore`` at ``store_path`` (the same API on
+  disk, behind Bloom-first lookups).
 
 Each chunk contributes two candidate families: its own band matrix
 (``candidates.BandMatrixSource``), and the band collisions of its band
@@ -23,8 +26,10 @@ a Design-2 band store through ``core.streaming.StreamingDedup`` (phase
 1) and then re-scans the whole store band-major through the accumulator
 (phase 2); the verified-sim cache keeps a pair from being verified
 twice.  The store is its retained state: it keeps no ``BandIndex``
-entries and publishes no ``SessionView``.  ``over_store`` adopts an
-already-populated ``StreamingDedup``.
+entries and publishes no ``SessionView``.  Under ``store="sqlite"`` the
+store is a ``SqliteBandStore`` that also holds the signature rows, and
+the session verifies off disk through ``DiskSignatureVerifier`` (K2').
+``over_store`` adopts an already-populated ``StreamingDedup``.
 
 The read path publishes an immutable ``SessionView``
 (``DedupSession.view``), which ``core.query`` and
@@ -41,10 +46,9 @@ The session's stages run on its ``device`` (``"cuda"`` unless told):
 signatures and bands through the ``DedupPipeline`` stages (K1, K3 and
 K4, or K6 with byte ingest), the kernel verify backend through K2, and
 ``refine``'s re-band of the representatives through K5 when
-``config.use_kernels`` is on.  Not ported yet, and raising
-``NotImplementedError``: the sharded backend (``ROADMAP.md`` queue 1,
-item 4) and the sqlite store tier (``DedupConfig(store="sqlite")``,
-item 2).
+``config.use_kernels`` is on, and a sqlite streaming session's verify
+through K2'.  Not ported yet, and raising ``NotImplementedError``: the
+sharded backend (``ROADMAP.md`` queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lsh, minhash, shingle
+from repro_torch.core.bandstore import SqliteBandStore
 from repro_torch.core.candidates import BandMatrixSource, ShardedEdgeSource
 from repro_torch.core.engine import (
     ClusterAccumulator,
@@ -239,6 +244,11 @@ class BandIndex:
         return tuple(f.copy() if f is not None else None
                      for f in self._filters)
 
+    def published(self) -> tuple:
+        """What a ``SessionView`` holds of the index: its band maps and
+        filters, copied, and no live store."""
+        return self.export_maps(), self.export_filters(), None
+
     def stats(self) -> dict:
         """Memory and recall accounting."""
         return {
@@ -324,8 +334,14 @@ class SessionView:
     In the eviction layout (a retention policy evicted a row) the rows
     and the doc -> row map are copies taken at publication.  ``device``
     is the session's: the read path's device verify runs there.
-    ``band_store`` (the sqlite tier's live store) is always ``None``
-    until that tier is ported (``ROADMAP.md`` queue 1 item 2).
+
+    A session under ``store="sqlite"`` publishes its live
+    ``SqliteBandStore`` as ``band_store`` instead of exporting the disk
+    index into host dicts (``band_maps`` and ``band_filters`` are then
+    empty): the probe goes through the store's pure Bloom-first
+    ``probe_keys``.  Its answers reflect the store at query time, so a
+    view held across later ingests can see newer entries; the probe
+    clips them to the view's ``n_docs``.
     """
 
     version: int                # monotone publication counter
@@ -339,7 +355,7 @@ class SessionView:
     signatures: np.ndarray      # retained rows (estimate sessions)
     slot_of: dict | None        # doc -> signature row (eviction layout)
     exact: ExactRowsView | None = None   # exact-verification sessions
-    band_store: None = None
+    band_store: SqliteBandStore | None = None
     device: torch.device = field(default=torch.device("cpu"), compare=False)
 
     @property
@@ -427,7 +443,15 @@ class DedupSession:
             # Each union logs the root it deposed, so a sweep never scans
             # every doc for lost roothood.
             self.acc.uf.track_deposed = True
-        self.band_index = BandIndex(
+        # The cross-step index: the in-RAM BandIndex, or under "sqlite"
+        # the same API on disk at store_path.  The streaming backend's
+        # retained state is its band store, so its (unused) index stays
+        # in memory.
+        index_kw = {}
+        index_cls = BandIndex
+        if self.config.store == "sqlite" and backend != "streaming":
+            index_cls, index_kw = SqliteBandStore, {"path": store_path}
+        self.band_index = index_cls(
             num_bands=self.config.num_bands,
             key_budget=(retention.band_key_budget
                         if retention is not None else None),
@@ -435,7 +459,7 @@ class DedupSession:
                         else 1 << 17),
             bloom_hashes=(retention.bloom_hashes if retention is not None
                           else 4),
-            track_entries=retention is not None)
+            track_entries=retention is not None, **index_kw)
         self.seeds = minhash.default_seeds(self.config.num_hashes)
         self.steps_ingested = 0
         self.refine_merges = 0
@@ -600,6 +624,7 @@ class DedupSession:
                 "SessionView needs retained signature or token rows; "
                 "external callback verifiers keep neither; pass a "
                 "SignatureVerifier/ExactJaccardVerifier instead")
+        band_maps, band_filters, band_store = self.band_index.published()
         view = SessionView(
             version=self._view_version + 1,
             n_docs=self.n_docs,
@@ -607,11 +632,12 @@ class DedupSession:
             num_bands=cfg.num_bands,
             rows_per_band=cfg.rows_per_band,
             labels=labels,
-            band_maps=self.band_index.export_maps(),
-            band_filters=self.band_index.export_filters(),
+            band_maps=band_maps,
+            band_filters=band_filters,
             signatures=sig,
             slot_of=slot_of,
             exact=exact,
+            band_store=band_store,
             device=self.device,
         )
         # The one sanctioned read-path mutation: this cache swap IS the
@@ -714,7 +740,8 @@ class DedupSession:
         (the sweep's hook; streaming backend only, the host backend's
         retained band state being the ``band_index`` the sweep already
         rewrote).  Keeps the phase-1 store from growing with evicted
-        history; see ``bandstore.Design2Store.compact``."""
+        history; see ``bandstore.Design2Store.compact`` and
+        ``SqliteBandStore.compact``."""
         compact = getattr(self._impl, "compact_store", None)
         if compact is not None:
             compact(doc_ids, root_of)
@@ -943,10 +970,13 @@ class _StreamingBackend:
     re-enumeration without re-verification: the paper's "repeat phase 2"
     made incremental.
 
-    An owned store hands each flush's signature rows straight to the
-    session verifier (on the device unless the verify backend is numpy's),
-    so its host cache stays empty; an adopted one keeps its cache, which
-    its ``default_verifier`` may rebuild from.
+    An owned memory-tier store hands each flush's signature rows straight
+    to the session verifier (on the device unless the verify backend is
+    numpy's), so its host cache stays empty; an adopted one keeps its
+    cache, which its ``default_verifier`` may rebuild from.  A sqlite
+    store writes each flush's rows to disk itself, and the session
+    verifies off disk through the store's ``DiskSignatureVerifier``: no
+    signature matrix is kept, on the host or the device.
     """
 
     def __init__(self, sess: DedupSession, *, store_path: str,
@@ -963,6 +993,8 @@ class _StreamingBackend:
                                      doc_id_base=sess.allocator.base,
                                      device=sess.device)
             self.sd.seeds = sess.seeds
+        self._on_disk = self.sd.store.keeps_signatures
+        if self._owned and not self._on_disk:
             self.sd._device_rows = []
 
     def dispatch(self, chunk, tokenized: bool = False):
@@ -991,15 +1023,19 @@ class _StreamingBackend:
         phase1 = {}
         if toks:
             self.sd.ingest_tokens(toks)
-            if self._owned:
+            if self._on_disk:
+                # The flushes wrote the rows to the store.
+                if sess._verifier is None and not sess._external_verifier:
+                    sess._verifier = self.sd.default_verifier()
+            elif self._owned:
                 sig = torch.cat(self.sd._device_rows)
                 self.sd._device_rows.clear()
                 if sess.config.resolved_backend() == "numpy":
                     sig = u32_to_numpy(sig)
+                sess._retain(toks, sig)
             else:
-                sig = np.stack([self.sd._sig_cache[base + i]
-                                for i in range(len(toks))])
-            sess._retain(toks, sig)
+                sess._retain(toks, np.stack([self.sd._sig_cache[base + i]
+                                             for i in range(len(toks))]))
             phase1 = {f"phase1_{k}": v
                       for k, v in self.sd.stage_timings.items()}
         t1 = time.perf_counter()

@@ -6,7 +6,9 @@ reads the store band-major and clusters.  This module has that
 two-phase shape:
 
   Phase 1 (write): stream document chunks -> signatures and band values
-    on the device -> a Design-2 band store (``core.bandstore``).
+    on the device -> a band store (``core.bandstore``): Design 2 under
+    ``DedupConfig(store="memory")``, or the sqlite tier, which keeps
+    the signature rows on disk too.
   Phase 2 (read): band-major scan over the store through the staged
     engine (``candidates.StoreBandSource`` -> batched verify ->
     ``ThresholdUnionFind``).
@@ -31,7 +33,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import minhash, shingle
-from repro_torch.core.bandstore import make_store
+from repro_torch.core.bandstore import (
+    DiskSignatureVerifier,
+    make_store,
+)
 from repro_torch.core.candidates import StoreBandSource
 from repro_torch.core.engine import merge_cluster_rounds as _merge_rounds
 from repro_torch.core.hashing import u32_to_numpy
@@ -47,18 +52,19 @@ from repro_torch.device import resolve_device
 
 @dataclass
 class StreamingDedup:
-    """Two-phase streaming dedup over a Design-2 band store.
+    """Two-phase streaming dedup over a band store (``config.store``).
 
     ``doc_id_base`` assigns global doc ids from that base: resumed
     ingest of a chunked corpus writes non-contiguous id ranges into the
-    store, which the Design-2 blobs keep explicitly.  ``device`` is
+    store, which keeps each row's doc id explicitly.  ``device`` is
     where phase 1's signatures and bands and the default verifier run.
 
-    Each flush's signature rows are cached on the host
-    (``_sig_cache``, doc id -> row) for ``default_verifier``, unless an
-    owning session has set ``_device_rows`` to a list: then they are
-    appended there as the pipeline's word tensors, and the cache stays
-    empty (the session's verifier takes them on the device).
+    A sqlite store takes each flush's signature rows itself
+    (``put_signatures``).  Over a memory-tier store they are cached on
+    the host (``_sig_cache``, doc id -> row) for ``default_verifier``,
+    unless an owning session has set ``_device_rows`` to a list: then
+    they are appended there as the pipeline's word tensors, and the
+    cache stays empty (the session's verifier takes them on the device).
     ``stage_timings`` holds the last ``ingest_tokens`` call's phase-1
     wall times, summed over its flushes: ``pack_s``, ``upload_s``,
     ``kernel_s`` (the pipeline's device stages), ``download_s`` (band
@@ -139,16 +145,22 @@ class StreamingDedup:
 
     def _store_chunk(self, sig, bands, n, keep_signatures):
         """Write one flushed chunk's band rows to the store, and keep its
-        signature rows (``_device_rows``, else the host cache)."""
+        signature rows: written to a sqlite store, else kept in
+        ``_device_rows`` or the host cache."""
         t0 = time.perf_counter()
         bands = u32_to_numpy(bands)
         ids = range(self.n_docs, self.n_docs + n)
-        if keep_signatures and self._device_rows is not None:
+        on_disk = None
+        if keep_signatures and self.store.keeps_signatures:
+            on_disk = u32_to_numpy(sig[:n])
+        elif keep_signatures and self._device_rows is not None:
             self._device_rows.append(sig)
         elif keep_signatures:
             self._sig_cache.update(zip(ids, u32_to_numpy(sig)))
         t1 = time.perf_counter()
         self.store.put_band_rows(ids, bands)
+        if on_disk is not None:
+            self.store.put_signatures(ids, on_disk)
         t2 = time.perf_counter()
         self.stage_timings["download_s"] += t1 - t0
         self.stage_timings["store_s"] += t2 - t1
@@ -165,11 +177,24 @@ class StreamingDedup:
     def default_verifier(self) -> BatchVerifier:
         """Signature-agreement verifier over the phase-1 rows.
 
-        Builds the full (n_docs, M) matrix from the host cache, indexed
-        by global doc id: rows below ``doc_id_base`` or inside a
-        resumed-ingest gap stay zero.  Those ids have no store rows, so
-        they never reach the verifier as candidates.
+        A sqlite store holds the rows on disk: the verifier is a
+        ``DiskSignatureVerifier`` over it on ``device`` (K2', the same
+        sims).  Over a memory-tier store it builds the full (n_docs, M)
+        matrix from the host cache, indexed by global doc id: rows below
+        ``doc_id_base`` or inside a resumed-ingest gap stay zero.  Those
+        ids have no store rows, so they never reach the verifier as
+        candidates.
         """
+        if self.store.keeps_signatures:
+            held = self.store.n_signatures()
+            if held < self.n_ingested:
+                raise ValueError(
+                    f"store holds {held} of {self.n_ingested} ingested "
+                    "docs' signature rows; ingest with "
+                    "keep_signatures=True or pass an explicit "
+                    "similarity_fn / verifier to cluster()")
+            return DiskSignatureVerifier(self.store, self.config.num_hashes,
+                                         device=self.device)
         if len(self._sig_cache) < self.n_ingested:
             raise ValueError(
                 f"signature cache holds {len(self._sig_cache)} of "

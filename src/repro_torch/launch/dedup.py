@@ -7,8 +7,11 @@ session counters, and ``--query N`` then re-queries N ingested notes
 and one novel note through a ``DedupQueryService`` over the warm
 session (a streaming session has no view to query, and says so).
 ``--streaming`` is the out-of-core two-phase mode: each step's notes go
-into a Design-2 band store at ``--store-path`` in flushes of ``--chunk``
-notes, and the store is re-scanned band-major.  Signatures, bands and
+into a band store at ``--store-path`` in flushes of ``--chunk`` notes,
+and the store is re-scanned band-major.  ``--store sqlite`` puts the
+state on disk behind Bloom-first lookups: the host mode's cross-step
+index, or the streaming mode's band and signature rows (verified
+through K2' on ``--device``).  Signatures, bands and
 the ``kernel`` verify backend run on ``--device`` (``cuda`` unless
 told: K1 with ``--fused-ingest``, K3 and K4 with ``--use-kernels``, K6
 with ``--byte-ingest``, K2 with ``--backend kernel``, K5 in ``refine``
@@ -24,9 +27,11 @@ clustering round every K steps.
       --steps 4 --retain-budget small --refine-every 2
   PYTHONPATH=src python -m repro_torch.launch.dedup --streaming --chunk 512 \\
       --steps 4 --fused-ingest --estimate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.dedup --streaming --estimate \\
+      --store sqlite --store-path bands.db
 
-The sharded mode and the sqlite store tier are not ported yet: those
-flags exit with a message naming their ``ROADMAP.md`` queue item.
+The sharded mode is not ported yet: ``--sharded`` exits with a message
+naming its ``ROADMAP.md`` queue item.
 """
 from __future__ import annotations
 
@@ -84,13 +89,6 @@ def run_query_demo(sess, notes, n: int):
           f", {n + 1} queries in {dt * 1e3:.1f} ms")
 
 
-_NOT_PORTED = {
-    "sharded": "--sharded is not ported yet: ROADMAP.md queue 1 item 4",
-    "store": "--store sqlite (the sqlite band-store tier) is not ported "
-             "yet: ROADMAP.md queue 1 item 2",
-}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--notes", type=int, default=500)
@@ -128,7 +126,7 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=128,
                     help="streaming ingest chunk size")
     ap.add_argument("--store-path", default=":memory:",
-                    help="sqlite database path of the streaming band store "
+                    help="sqlite database path for the store tier "
                          "(default :memory:)")
     ap.add_argument("--sharded", action="store_true",
                     help="not ported yet (ROADMAP.md queue 1 item 4)")
@@ -142,14 +140,14 @@ def main(argv=None):
                          "(DedupSession.refine) every K ingest steps "
                          "(0 = off)")
     ap.add_argument("--store", default=None, choices=("memory", "sqlite"),
-                    help="band-store tier; only memory is ported (sqlite: "
-                         "ROADMAP.md queue 1 item 2).  Default: "
-                         "$REPRO_STORE_BACKEND or memory")
+                    help="band-store tier: memory (in-RAM index / "
+                         "Design-2 blob store) or sqlite (disk-resident "
+                         "band + signature rows behind Bloom-first "
+                         "lookups; identical clusters either way). "
+                         "Default: $REPRO_STORE_BACKEND or memory")
     args = ap.parse_args(argv)
-    for flag, given in (("sharded", args.sharded),
-                        ("store", args.store == "sqlite")):
-        if given:
-            ap.error(_NOT_PORTED[flag])
+    if args.sharded:
+        ap.error("--sharded is not ported yet: ROADMAP.md queue 1 item 4")
 
     import numpy as np
 
@@ -213,8 +211,8 @@ def main(argv=None):
             run_query_demo(sess, notes, args.query)
         return
 
-    sess = DedupSession(cfg, backend="host", retention=retention,
-                        device=args.device)
+    sess = DedupSession(cfg, backend="host", store_path=args.store_path,
+                        retention=retention, device=args.device)
     t0 = time.perf_counter()
     for chunk in chunks:
         snap = sess.ingest(chunk)

@@ -728,6 +728,65 @@ def test_streaming_phase1_keeps_signatures_on_card(cuda):
     assert torch.equal(v._device_signatures(), want)
 
 
+def test_disk_signature_verifier_launches_k2_prime_and_matches_cpu(cuda):
+    """The sqlite tier's verifier gathers rows off disk through its
+    cache and scores them with K2' on the card: launches counted, sims
+    equal to its CPU twin and to numpy's mean, cache counters alike."""
+    from repro_torch.core.bandstore import (
+        DiskSignatureVerifier,
+        SqliteBandStore,
+    )
+
+    rng = np.random.RandomState(15)
+    sig = rng.randint(0, 4, size=(300, 100)).astype(np.uint32)
+    pairs = rng.randint(0, 300, size=(20000, 2)).astype(np.int64)
+    store = SqliteBandStore(num_bands=1)
+    store.put_signatures(np.arange(300), sig)
+    out = {}
+    for device in ("cpu", "cuda"):
+        v = DiskSignatureVerifier(store, 100, cache_rows=128, device=device)
+        k2.masked_launches = 0
+        out[device] = (v(pairs), v.cache_hits, v.cache_misses)
+        torch.cuda.synchronize()
+        launched = k2.masked_launches
+    assert launched == -(-len(pairs) // v.batch_pairs)
+    assert np.array_equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1:] == out["cpu"][1:]
+    want = (sig[pairs[:, 0]] == sig[pairs[:, 1]]).mean(axis=-1,
+                                                     dtype=np.float32)
+    assert np.array_equal(out["cuda"][0], want)
+
+
+def test_sqlite_streaming_session_on_card_matches_cpu(cuda, tmp_path):
+    """A small streaming session over a sqlite store file (K1 once a
+    flush, K2' for the verify, no K2) equals the same session on the
+    CPU, with and without an eviction window; rows and entries alike."""
+    from repro_torch.core import RetentionPolicy
+
+    notes, _ = inject_near_duplicates(make_i2b2_like(160, seed=5), 96,
+                                      frac_low=0.0, frac_high=0.005, seed=6)
+    cfg = DedupConfig(fused_ingest=True, exact_verification=False,
+                      store="sqlite")
+    for run, policy in enumerate((None, RetentionPolicy(lru_window=16))):
+        out = {}
+        for device in ("cpu", "cuda"):
+            k1.launches = k2.launches = k2.masked_launches = 0
+            sess = DedupSession(cfg, backend="streaming", chunk_docs=32,
+                                retention=policy, device=device,
+                                store_path=str(tmp_path / f"{device}{run}.db"))
+            for chunk in np.array_split(np.arange(len(notes)), 4):
+                snap = sess.ingest([notes[i] for i in chunk])
+            store = sess._impl.sd.store
+            out[device] = (snap.labels.tolist(), snap.pairs, snap.evicted,
+                           snap.retained_rows, store.n_entries(),
+                           store.n_signatures())
+            launched = (k1.launches, k2.launches, k2.masked_launches)
+        assert out["cuda"] == out["cpu"]
+        assert launched[0] == len(notes) // 32
+        assert launched[1] == 0 and launched[2] > 0
+        assert (out["cuda"][2] > 0) == (policy is not None)
+
+
 def test_serve_batch_with_flash_on_card_matches_cpu(cuda):
     cfg = get_reduced("h2o-danube-1.8b").with_(use_flash_attention=True)
     model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")

@@ -2,9 +2,9 @@
 
 Both run in process on the same flags (the port with ``--device cpu``);
 their report lines must agree in every count, the retention clause
-included, in host and streaming mode.  The flags of later slices (the
-sharded mode, the sqlite store tier) exit with a message naming their
-ROADMAP.md queue item.
+included, in host and streaming mode, over either store tier.  The
+sharded mode, a later slice, exits with a message naming its ROADMAP.md
+queue item.
 """
 import re
 
@@ -61,10 +61,33 @@ def test_streaming_report_matches_reference(mode, capsys):
     assert got[2].startswith("query demo skipped: ")
 
 
+@pytest.mark.parametrize("mode,head", [
+    ([], "host[2 step(s)]: 65 docs ingested"),
+    (["--streaming", "--chunk", "16"], "streaming[2 step(s)]: 65 docs"),
+])
+def test_sqlite_store_report_matches_reference(mode, head, capsys, tmp_path):
+    """``--store sqlite`` with a store file each: the host mode's
+    cross-step index and query demo go through the disk index, the
+    streaming mode verifies off disk (the plain version of K2' here)."""
+    common = ["--notes", "40", "--dups", "25", "--steps", "2", "--estimate",
+              "--store", "sqlite", "--query", "4"] + mode
+    got = _report(dedup.main, common + [
+        "--store-path", str(tmp_path / "port.db"), "--backend", "kernel",
+        "--device", "cpu"], capsys)
+    want = _report(ref_dedup.main, common + [
+        "--store-path", str(tmp_path / "ref.db"), "--backend", "numpy"],
+        capsys)
+    assert got == want
+    assert got[1].startswith(head)
+    if mode:
+        assert got[2].startswith("query demo skipped: ")
+    else:
+        assert got[2].startswith("query[view v1]: 4/4 re-queried notes")
+    assert (tmp_path / "port.db").stat().st_size > 0
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--streaming", "--store", "sqlite"], "item 2"),
     (["--sharded"], "item 4"),
-    (["--store", "sqlite"], "item 2"),
 ])
 def test_later_slices_exit_with_their_queue_item(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:

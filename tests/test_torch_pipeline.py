@@ -189,12 +189,32 @@ def test_default_device_raises_without_cuda():
         DedupPipeline.from_reference({}, np.zeros(100, np.uint32))
 
 
-@pytest.mark.parametrize("fields", [
-    dict(store="sqlite"),
-])
-def test_later_slices_raise_not_implemented(fields):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DedupConfig(**fields)
+@pytest.mark.parametrize("name", ["exact", "estimate_numpy"])
+def test_run_under_sqlite_matches_reference(notes, name, monkeypatch):
+    """``store="sqlite"``: the one-chunk session's cross-step index is a
+    ``SqliteBandStore`` on ``":memory:"``, as the reference's is, and the
+    run's outputs equal the reference's sqlite run."""
+    import repro_torch.core.session as session_mod
+
+    ref_fields, port_overrides = CONFIGS[name]
+    ref_cfg = ref_pipeline.DedupConfig(store="sqlite", **ref_fields)
+    ref_pipe = ref_pipeline.DedupPipeline(ref_cfg)
+    want = ref_pipe.run(notes)
+    fields = {**dataclasses.asdict(ref_cfg), **port_overrides}
+    pipe = DedupPipeline.from_reference(fields, ref_pipe.seeds, device="cpu")
+    assert pipe.config.store == "sqlite"
+    made = []
+    store_cls = session_mod.SqliteBandStore
+    monkeypatch.setattr(session_mod, "SqliteBandStore",
+                        lambda **kw: made.append(kw) or store_cls(**kw))
+    got = pipe.run(notes)
+    assert len(made) == 1 and made[0]["path"] == ":memory:"
+    assert np.array_equal(got.labels, want.labels)
+    assert np.array_equal(got.keep_mask, want.keep_mask)
+    assert np.array_equal(got.signatures, want.signatures)
+    assert np.array_equal(got.bands, want.bands)
+    assert got.pairs == want.pairs
+    assert got.stats.pairs_evaluated == want.stats.pairs_evaluated > 0
 
 
 def test_byte_ingest_with_exact_verification_raises():
@@ -219,8 +239,7 @@ def test_store_default_reads_the_environment(monkeypatch):
     assert DedupConfig().store == "memory"
     monkeypatch.setenv("REPRO_STORE_BACKEND", "sqlite")
     assert ref_pipeline.DedupConfig().store == "sqlite"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DedupConfig()
+    assert DedupConfig().store == "sqlite"
     monkeypatch.setenv("REPRO_STORE_BACKEND", "redis")
     with pytest.raises(ValueError):
         DedupConfig()

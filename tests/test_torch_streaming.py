@@ -38,6 +38,7 @@ from repro_torch.core.bandstore import (
     BandStoreBackend,
     Design1Store,
     Design2Store,
+    SqliteBandStore,
     _decode_part,
     _encode_part_v2,
     make_store,
@@ -545,14 +546,15 @@ def test_make_store_factory():
     assert isinstance(store, Design2Store) and isinstance(store,
                                                           BandStoreBackend)
     assert store.part_size == 7 and store.kind == "memory"
-    with pytest.raises(NotImplementedError, match="queue 1 item 2: the sqlite"):
-        make_store("sqlite")
+    sqlite_store = make_store("sqlite", num_bands=5)
+    assert isinstance(sqlite_store, SqliteBandStore) and isinstance(
+        sqlite_store, BandStoreBackend)
+    assert sqlite_store.kind == "sqlite" and sqlite_store.num_bands == 5
     with pytest.raises(ValueError, match="unknown store"):
         make_store("cassandra")
     with pytest.raises(ValueError, match="unknown store"):
         DedupConfig(store="cassandra")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        DedupConfig(store="sqlite")
+    assert DedupConfig(store="sqlite").store == "sqlite"
 
 
 def test_probe_keys_and_accounting_match_reference():
