@@ -56,6 +56,7 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   filter-only hits; 64 evicted docs queried through a ``kernel``
   ``DedupQueryService`` answer with their cluster through a retained
   doc); R2 under ``RetentionPolicy.preset("small", refine_every=2)``
+  on phase A's first 4,096 notes
   (keys compacted into Bloom filters, two refines, each refine's K5 fold
   equal to ``core.lsh.band_values`` on the same rows and each merge's sim
   equal to K2's plain counts / M and above the edge threshold, a query
@@ -102,6 +103,17 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   list equal the host run's, and K7 equals its plain version on the
   step's gathered edges (its 5 launches timed per call and from a CUDA
   graph).
+* Phase D, the sharded ``DedupSession`` (``backend="sharded"``) over the
+  same NCCL group: D1 phase A's notes in 4 chunks at full width, K1 and
+  device stage 2 (K7), phase S's buffers, its signatures equal phase A's,
+  nothing overflowed or re-scored on the host, every pair's similarity
+  equal to K2's plain counts / M, its partition and shared sims equal to
+  phase S's one-shot step's, each chunk's step timed alone; D2
+  ``r3_notes`` in 3 chunks with host stage 2 on the card and on the CPU
+  field by field, byte ingest (K6, K1) against no-stem tokens, device
+  against host stage 2; D3 the CLI's ``--sharded --stage2 device`` on the
+  card against the same command on the CPU.  ``launches_phase_d`` on the
+  K1, K2, K6 and K7 lines.
 * Phase B, paper-scale kernels: K1, and K3 -> K4 -> K5, on a 1,048,576 x
   256 token matrix (a tenth of the paper's 10M-note corpus as one ingest
   chunk); K2 on 16,777,216 random pairs through ``SignatureVerifier``;
@@ -119,7 +131,8 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   ``kernels.ops.pair_estimate`` (K7's pre-gathered form, every lane
   valid) against its plain version and K2's estimates.
 * Phase F, K8 (flash attention) against its plain version: float32 at
-  test_kernels.py's four shapes to 3e-5, bf16 at h2o-danube's,
+  test_kernels.py's four shapes and h2o-danube's prefill to 3e-5, each
+  timed beside its plain version and SDPA in float32, bf16 at h2o-danube's,
   olmo's and gemma's prefill shapes to a bound of bf16's rounding (and
   to 2e-2), each bf16 shape timed beside the plain version and
   ``scaled_dot_product_attention``.  The built library's SASS shows
@@ -232,6 +245,7 @@ def main() -> int:
                                     for path, counts in h_launches.items()}
     # Phase R takes H1's record; phases T and Q compare against it too.
     ctx["t_h1"] = {k: ctx["h1"][k] for k in ("labels", "pairs", "summary")}
+    ctx["d_h1_ingest_s"] = ctx["h1"]["summary"]["ingest_s"]
     t0 = time.perf_counter()
     r_launches, k5_refine = phase_r(torch, clock_hz, notes, prov, ctx)
     emit(phase_r={"seconds": time.perf_counter() - t0,
@@ -263,9 +277,16 @@ def main() -> int:
                             world_size=1)
     try:
         k7_line = phase_s(torch, clock_hz, ctx)
+        t0 = time.perf_counter()
+        d_launches = phase_d(torch, notes, prov, ctx)
+        emit(phase_d={"seconds": time.perf_counter() - t0,
+                      "launches": d_launches})
         paper = phase_b(torch, clock_hz, k1_sass)
     finally:
         dist.destroy_process_group()
+    for line in (k1_line, k2_line, k6_line, k7_line):
+        line["launches_phase_d"] = {path: counts[line["name"]]
+                                    for path, counts in d_launches.items()}
     lines = [k1_line, k2_line, k3_line, k4_line, k5_line, k6_line, k7_line]
     for line in lines:
         line["paper_scale"] = paper[line["name"]]
@@ -1568,6 +1589,10 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
 # -- phase R: bounded retained state and refine ------------------------------------
 
 R1_WINDOW, R_EVICTED_QUERIES, R_FILTER_QUERIES = 1024, 64, 256
+# R2's depth: phase A's first 4,096 notes (cut from all 16,384 to pay
+# for phase D), still twice the small preset's 2,048 keys a band, so keys
+# are compacted and the queries of the first notes hit the filters.
+R2_NOTES = 4096
 R3_SOURCES, R3_DUPS = 2560, 512
 
 
@@ -1777,7 +1802,7 @@ def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
     policy = RetentionPolicy.preset("small", refine_every=2)
     rounds: list = []
     sess, snap, r2 = retention_run(
-        torch, cfg, notes, policy, device, counters,
+        torch, cfg, notes[:R2_NOTES], policy, device, counters,
         setup=lambda s: traced_refine(torch, s, rounds))
     launches["r2_session"] = r2["launches"]
     check(sess.band_index.compacted_keys > 0, "R2 compacted band keys")
@@ -1798,7 +1823,8 @@ def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
                  "plain_ms": cuda_ms(torch,
                                      lambda: k5.band_values_plain(rows, r), 5),
                  **k5_bound(len(rows), rows.shape[1], r, clock_hz)}
-    r2.update(rounds=[{k: x[k] for k in x if k != "rows"} for x in rounds],
+    r2.update(notes=R2_NOTES,
+              rounds=[{k: x[k] for k in x if k != "rows"} for x in rounds],
               filter_queries=len(got),
               query_filter_only_hits=sum(x.filter_only_hits for x in got),
               k5_refine=k5_refine)
@@ -2424,6 +2450,9 @@ def phase_s(torch, clock_hz: float, ctx: dict) -> dict:
           "device stage 2 labels == host stage 2 labels")
     check(hr.pairs == dr.pairs, "device stage 2 (a, b, sim) == host stage 2")
     check(dr.device_scored > 0, "edges served from device scores")
+    # Phase D's first session takes the same notes in chunks.
+    ctx["s_one_shot"] = {"labels": dr.labels(), "pairs": dr.pairs,
+                         "config": base}
 
     # K7 on the step's own gathered edges, against its plain version and
     # against the counts the step returned.
@@ -2561,6 +2590,284 @@ def phase_s2(torch, clock_hz, g, tokens, lengths, seeds, sig) -> dict:
     return result
 
 
+# -- phase D: the sharded session -------------------------------------------------
+
+D_CHUNKS, D2_CHUNKS = 4, 3
+D_COUNTERS = ("overflow", "retried", "device_scored", "host_rescored",
+              "row_overflow")
+STATS_FIELDS = ("pairs_generated", "pairs_evaluated", "pairs_excluded",
+                "pairs_above_edge", "unions_done", "unions_rejected",
+                "verify_batches")
+
+
+def sharded_run(torch, cfg, dcfg, chunks, device: str, counters: dict, *,
+                mesh=None, tokenized: bool = False, step_times=None) -> tuple:
+    """One sharded ``DedupSession`` over ``chunks`` (``ingest_stream``),
+    each step timed on the host clock after a synchronize and split by
+    the session's ``stage_timings``.  ``counters`` maps names to (kernel
+    module, counter); they are set to 0 before the run and returned after
+    it.  With ``step_times`` (a list) each chunk's sharded step is timed
+    alone, between two synchronizes, into it."""
+    from repro_torch.core.session import DedupSession
+
+    sess = DedupSession(cfg, backend="sharded", dist_config=dcfg, mesh=mesh,
+                        device=device)
+    if step_times is not None:
+        inner = sess._impl._run_step
+
+        def sync():
+            if device == "cuda":
+                torch.cuda.synchronize()
+
+        def timed_step(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            sync()
+            step_times.append(time.perf_counter() - t0)
+            return out
+
+        sess._impl._run_step = timed_step
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    steps = []
+    t0 = time.perf_counter()
+    for snap in sess.ingest_stream(chunks, tokenized=tokenized):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        t = sess.stage_timings
+        steps.append({"seconds": now - t0, "merge_s": t["merge_s"],
+                      "feed_s": t["feed_s"], "cross_step_s": t["cross_step_s"],
+                      "cross_step_edges": t["cross_step_edges"],
+                      "pairs_evaluated": snap.stats.pairs_evaluated})
+        t0 = now
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    n = snap.n_docs
+    ingest_s = sum(x["seconds"] for x in steps)
+    summary = {"chunks": len(chunks), "notes": n, "steps": steps,
+               "ingest_s": ingest_s, "notes_per_s": n / ingest_s,
+               "merge_s": sum(x["merge_s"] for x in steps),
+               "pairs_evaluated": snap.stats.pairs_evaluated,
+               "verify_batches": snap.stats.verify_batches,
+               "launches": launches,
+               **{f: getattr(snap, f) for f in D_COUNTERS}}
+    return sess, snap, summary
+
+
+def session_record(snap) -> dict:
+    """What two runs of one sharded session must share, field by field."""
+    return {"n_docs": snap.n_docs, "labels": snap.labels.tolist(),
+            "pairs": snap.pairs,
+            "stats": [getattr(snap.stats, f) for f in STATS_FIELDS],
+            **{f: getattr(snap, f) for f in D_COUNTERS}}
+
+
+def phase_d(torch, notes: list[str], prov: list, ctx: dict,
+            device: str = "cuda") -> dict:
+    """The sharded ``DedupSession`` (``backend="sharded"``) over the
+    one-rank NCCL group.  D1: phase A's notes in ``D_CHUNKS`` chunks at
+    full width (M 100, r 2, n 8) with K1 and device stage 2 (K7), phase
+    S's buffers, held against phase A's signatures and phase S's one-shot
+    step, every pair's sim against K2's plain counts / M.  D2:
+    ``r3_notes`` in ``D2_CHUNKS`` chunks with host stage 2, on the card
+    and on the CPU (a mesh of one shard without a group) field by field;
+    byte ingest (K6 -> K1) against no-stem tokens; device stage 2 against
+    host stage 2.  D3: the CLI's ``--sharded --stage2 device`` on the
+    card against the same command with ``--device cpu``.  Returns each
+    path's K1, K2, K6 and K7 launches."""
+    import numpy as np
+
+    from repro_torch.core import dist_lsh, shingle
+    from repro_torch.core.pipeline import DedupConfig
+    from repro_torch.kernels import byte_shingle as k6
+    from repro_torch.kernels import fused_ingest as k1
+    from repro_torch.kernels import sigjaccard as k2
+
+    counters = {"fused_ingest": (k1, "launches"),
+                "pair_counts": (k2, "launches"),
+                "byte_token_hashes": (k6, "launches"),
+                "masked_indexed_pair_counts": (k2, "masked_launches")}
+    launches = {}
+    cli = [sys.executable, "-m", "repro_torch.launch.dedup", "--sharded",
+           "--stage2", "device", "--fused-ingest", "--steps", "4",
+           "--device"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "2"}
+    procs = {}
+    try:
+        # D1: phase A's notes, phase S's buffers, 4 chunks.
+        one = ctx.pop("s_one_shot")
+        cfg = DedupConfig(fused_ingest=True, exact_verification=False,
+                          verify_backend="kernel", verify_batch="band")
+        dcfg = dist_lsh.DistLSHConfig(
+            fused_ingest=True, band_groups=5, stage2="device",
+            bucket_slack=one["config"]["bucket_slack"],
+            edge_capacity=one["config"]["edge_capacity"])
+        size = -(-len(notes) // D_CHUNKS)
+        chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
+        step_s: list = []
+        sess, snap, d1 = sharded_run(torch, cfg, dcfg, chunks, device,
+                                     counters, step_times=step_s)
+        launches["d1_session"] = d1["launches"]
+        check(snap.n_docs == len(notes), "D1 covers every note")
+        check(np.array_equal(sess.signatures, ctx["res"].signatures),
+              "D1 signatures == phase A's")
+        check(snap.overflow == snap.retried == snap.row_overflow == 0,
+              "D1: nothing overflowed, no retry")
+        check(snap.device_scored > 0 and snap.host_rescored == 0,
+              "D1: device-scored edges, no host re-score")
+        check_pair_sims(torch, sess, snap, device, "D1")
+        check(d1["launches"]["fused_ingest"] == D_CHUNKS,
+              "D1: K1 once a chunk")
+        check(d1["launches"]["masked_indexed_pair_counts"]
+              >= D_CHUNKS * dcfg.band_groups,
+              "D1: K7 at least once a band group a chunk")
+        check(d1["launches"]["pair_counts"] > 0, "D1: K2 launched")
+        d1.update(d1_vs_one_shot(snap, one))
+        d1.update(step_s=step_s, config={
+            "band_groups": dcfg.band_groups, "stage2": dcfg.stage2,
+            "bucket_slack": dcfg.bucket_slack,
+            "edge_capacity": dcfg.edge_capacity},
+            one_shot_pairs_evaluated=len(one["pairs"]),
+            cross_step_s=[x["cross_step_s"] for x in d1["steps"]],
+            h1_ingest_s=ctx.pop("d_h1_ingest_s"))
+        emit(phase_d1=d1)
+        del sess, snap, one
+
+        # D3's two CLI runs (the card's, the CPU's) go beside D2, which
+        # leaves the card and most host cores idle; D1 runs alone.
+        t_cli = time.perf_counter()
+        for name, dev in (("card", device), ("cpu", "cpu")):
+            procs[name] = subprocess.Popen(
+                cli + [dev], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+
+        # D2: r3_notes in 3 chunks.
+        notes3 = r3_notes(notes, prov)
+        size = len(notes3) // D2_CHUNKS
+        check(size * D2_CHUNKS == len(notes3), "D2 chunks are equal")
+        chunks = [notes3[i : i + size] for i in range(0, len(notes3), size)]
+        host_cfg = dist_lsh.DistLSHConfig(fused_ingest=True, band_groups=5,
+                                          edge_capacity=size * 10)
+        runs, d2 = {}, {"notes": len(notes3), "chunks": D2_CHUNKS}
+        cpu_mesh = dist_lsh.DocsMesh(group=None, rank=0, n_dev=1,
+                                     device=torch.device("cpu"))
+        nostem = [shingle.tokenize(t, do_stem=False) for t in notes3]
+        nostem = [nostem[i : i + size] for i in range(0, len(notes3), size)]
+        byte_cfg = DedupConfig(byte_ingest=True, exact_verification=False,
+                               verify_backend="kernel", verify_batch="band")
+        for name, c, dc, dev, mesh, inputs, tok in (
+                ("host", cfg, host_cfg, device, None, chunks, False),
+                ("host_cpu", cfg, host_cfg, "cpu", cpu_mesh, chunks, False),
+                ("bytes", byte_cfg, dist_lsh.DistLSHConfig(
+                    byte_ingest=True, band_groups=5,
+                    edge_capacity=size * 10), device, None, chunks, False),
+                ("nostem", cfg, host_cfg, device, None, nostem, True),
+                ("device", cfg, dist_lsh.DistLSHConfig(
+                    fused_ingest=True, band_groups=5, stage2="device",
+                    edge_capacity=size * 10), device, None, chunks, False)):
+            _, s2, summary = sharded_run(torch, c, dc, inputs, dev, counters,
+                                         mesh=mesh, tokenized=tok)
+            runs[name] = session_record(s2)
+            launches[f"d2_{name}"] = summary["launches"]
+            d2[name] = {k: summary[k] for k in (
+                "ingest_s", "notes_per_s", "pairs_evaluated", "launches",
+                *D_COUNTERS)}
+        for field in runs["host_cpu"]:
+            check(runs["host"][field] == runs["host_cpu"][field],
+                  f"D2 {field}: card == CPU")
+        for a, b in (("nostem", "bytes"), ("host", "device")):
+            check(runs[a]["labels"] == runs[b]["labels"]
+                  and runs[a]["pairs"] == runs[b]["pairs"],
+                  f"D2: {b} labels and pairs == {a}'s")
+        check(all(runs[r]["overflow"] == 0 for r in runs),
+              "D2: nothing overflowed")
+        check(runs["device"]["device_scored"] > 0
+              and runs["device"]["host_rescored"] == 0,
+              "D2 device: device-scored edges, no host re-score")
+        for name, want in (("host", {"fused_ingest": D2_CHUNKS}),
+                           ("bytes", {"byte_token_hashes": D2_CHUNKS,
+                                      "fused_ingest": D2_CHUNKS}),
+                           ("device", {"fused_ingest": D2_CHUNKS})):
+            got = launches[f"d2_{name}"]
+            check(all(got[k] == v for k, v in want.items())
+                  and got["pair_counts"] > 0,
+                  f"D2 {name}: K1 (K6) once a chunk, and K2")
+        check(launches["d2_device"]["masked_indexed_pair_counts"]
+              >= D2_CHUNKS * 5, "D2 device: K7 once a band group a chunk")
+        d2["duplicates"] = runs["host"]["n_docs"] - len(
+            set(runs["host"]["labels"]))
+        emit(phase_d2=d2)
+
+        # D3: the CLI on the card, against its CPU twin.
+        d2_end = time.perf_counter()
+        reports, seconds = {}, {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            seconds[name] = time.perf_counter() - t_cli
+            check(proc.returncode == 0,
+                  f"sharded dedup CLI ({name}) exits 0: {err[-2000:]}")
+            reports[name] = out.splitlines()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    card, cpu = (cli_counts(reports[name]) for name in ("card", "cpu"))
+    check(card is not None and card == cpu,
+          f"sharded CLI: the card's report == the CPU's ({card}, {cpu})")
+    emit(phase_d3={"argv": cli[1:] + [device],
+                   "seconds_from_start": seconds,
+                   "waited_after_d2_s": time.perf_counter() - d2_end,
+                   "report": reports["card"], "cpu_report": reports["cpu"],
+                   "counts": card})
+    return launches
+
+
+SHARDED_REPORT = re.compile(
+    r"^sharded\[1 devices x \d+ band-group\(s\) x 4 step\(s\)\]: "
+    r"(\d+) docs ingested, (\d+) clusters, (\d+) duplicates, (\d+) pairs "
+    r"verified \((\d+) excluded\) in (\d+) batches .*, (\d+) overflow, "
+    r"stage2=device (\d+) device-scored / (\d+) host-rescored / (\d+) "
+    r"row-overflow")
+
+
+def cli_counts(report: list[str]):
+    """The counts of the sharded CLI's report line (docs, clusters,
+    duplicates, pairs, excluded, batches, overflow, device-scored,
+    host-rescored, row-overflow), or None without one."""
+    for line in report:
+        m = SHARDED_REPORT.match(line)
+        if m:
+            return [int(x) for x in m.groups()]
+    return None
+
+
+def d1_vs_one_shot(snap, one: dict) -> dict:
+    """D1 against phase S's one-shot step on the same notes.
+
+    What holds at this size (checked on the CPU through the plain
+    versions before any card run; PERF.md §6): the partition, so the keep
+    mask, and the sim of every pair both evaluate.  The root ids need not:
+    the session unions chunk by chunk, each chunk's step edges and then
+    its cross-step edges (never prescreened, so it verifies far more
+    pairs), and union by rank then names other roots than the one-shot
+    step's single pass."""
+    import numpy as np
+
+    check(canonical(snap.labels) == canonical(one["labels"]),
+          "D1 partition == phase S's one-shot partition")
+    sims = {(a, b): s for a, b, s in one["pairs"]}
+    shared = [(s, sims[(a, b)]) for a, b, s in snap.pairs if (a, b) in sims]
+    check(len(shared) > 0 and all(x == y for x, y in shared),
+          "D1: sims of the pairs both evaluate == phase S's")
+    return {"labels_equal_as_ids": bool(np.array_equal(snap.labels,
+                                                       one["labels"])),
+            "shared_pairs": len(shared)}
+
+
 # -- phase F: K8 against its plain version ----------------------------------------
 
 # test_kernels.py's four float32 shapes (B, S, H, Hkv, Dh, window) and the
@@ -2690,7 +2997,9 @@ def bf16_bound(want, vbar):
 
 
 def phase_f(torch, clock_hz: float, lib_path, log: str) -> dict:
-    """K8 against ``flash_attention_plain`` on the card: float32 to 3e-5;
+    """K8 against ``flash_attention_plain`` on the card: float32 to 3e-5
+    at the tests' four shapes and h2o-danube's prefill, each timed beside
+    its plain version and SDPA in float32 with its bound;
     bf16 to ``bf16_bound`` on unit-normal inputs, and to the coarser
     atol = rtol = 2e-2.  A mask off by one key (window + 1; every query
     one position later) must exceed the bound.  Timed beside its plain
@@ -2730,14 +3039,33 @@ def phase_f(torch, clock_hz: float, lib_path, log: str) -> dict:
                                    (B, S, Hkv, Dh)))
 
     f32 = []
-    for shape in K8_F32_SHAPES:
+    # The float32 kernel at the tests' shapes, then at phase M's float32
+    # gate (h2o-danube's 6,144-token prefill), each timed beside its plain
+    # version and SDPA in float32 (IEEE products: no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for shape in K8_F32_SHAPES + [K8_BF16_SHAPES[M_ARCH]]:
         q, k, v = inputs(*shape[:5], torch.float32)
-        got = k8.flash_attention(q, k, v, window=shape[5])
-        want = k8.flash_attention_plain(q, k, v, window=shape[5])
+        window = shape[5]
+        got = k8.flash_attention(q, k, v, window=window)
+        want = k8.flash_attention_plain(q, k, v, window=window)
         check(torch.allclose(got, want, atol=3e-5, rtol=0),
               f"K8 float32 == plain to 3e-5 at {shape}")
-        f32.append({"shape": shape,
-                    "max_abs_err": float((got - want).abs().max())})
+        call = sdpa_call(torch, q, k, v, window)
+        lib = call().transpose(1, 2)
+        f32.append({
+            "shape": shape, "max_abs_err": float((got - want).abs().max()),
+            "ms": cuda_ms(torch, lambda: k8.flash_attention(
+                q, k, v, window=window), 5),
+            "plain_ms": cuda_ms(torch, lambda: k8.flash_attention_plain(
+                q, k, v, window=window), 2),
+            "library_ms": cuda_ms(torch, call, 5),
+            "library_backends": sdpa_backends(torch, call),
+            "library_max_abs_err": float((lib - want).abs().max()),
+            **k8_bound(torch, shape, torch.float32, clock_hz)})
+        r = f32[-1]
+        r.update(ms_over_library=r["ms"] / r["library_ms"],
+                 ms_over_bound=r["ms"] / r["bound_ms"])
+        del q, k, v, got, want, lib, call
     bf16 = {}
     for arch, shape in K8_BF16_SHAPES.items():
         q, k, v = inputs(*shape[:5], torch.bfloat16)
@@ -2930,6 +3258,9 @@ def phase_m(torch, k8_shapes: dict) -> dict:
         "greedy_k8": serve_batch(cfg32.with_(use_flash_attention=True), model,
                                  long_prompt, 8)[0][0].tolist(),
         "greedy_plain": serve_batch(cfg32, model, long_prompt, 8)[0][0].tolist()}
+    # The float32 kernel's launches on this slice: every layer of the
+    # gated prefill, the cut depth and the greedy run's prefill.
+    out["float32"]["k8_launches"] = f32_launches = k8.launches
     # The same weights in float64, norms, RoPE and attention included:
     # how far float32 rounding alone moves the logits.
     model.double()
@@ -3020,6 +3351,9 @@ def phase_m(torch, k8_shapes: dict) -> dict:
     main_shape = k8_shapes["bf16"][M_ARCH]
     keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "max_err_over_bound")
+    keep32 = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+              "library_backends", "bound_ms", "bound_by")
+    f32 = [{k: r[k] for k in keep32} for r in k8_shapes["float32"]]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "float32_source": "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
@@ -3029,7 +3363,9 @@ def phase_m(torch, k8_shapes: dict) -> dict:
             "library_backends": main_shape["library_backends"],
             "other_shapes": {a: {k: r[k] for k in keep}
                              for a, r in k8_shapes["bf16"].items()
-                             if a != M_ARCH}}
+                             if a != M_ARCH},
+            "float32": {**f32[-1], "launches": f32_launches,
+                        "test_shapes": f32[:-1]}}
 
 
 # -- phase B: paper-scale kernels -------------------------------------------------

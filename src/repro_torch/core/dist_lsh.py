@@ -46,6 +46,7 @@ dropped out-of-range writes go to one spare row that is cut off.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -532,6 +533,35 @@ class StepFeed:
     group_stats: list
 
 
+def _resolve_stream(stream: bool | None, device: torch.device) -> bool:
+    """Whether ``feed_step_groups`` brings each group's buffers to the
+    host only when its loop reaches the group.
+
+    ``None`` streams unless the step ran on the CPU of a one-core host,
+    where device work and host merge share the only core, so waiting for
+    everything up front costs nothing.  Results are the same either way.
+    """
+    if stream is not None:
+        return bool(stream)
+    if device.type != "cpu":
+        return True
+    return (os.cpu_count() or 1) > 1
+
+
+def _host_group(g_out: dict, device_scored: bool) -> dict:
+    """One group's buffers on the host as numpy arrays (edge words as
+    uint32)."""
+    hosted = {"stats": host_array(g_out["stats"]),
+              "edges": host_u32(g_out["edges"]),
+              "edge_mask": host_array(g_out["edge_mask"]).astype(bool)}
+    if device_scored:
+        hosted.update(
+            counts=host_array(g_out["device_match_counts"]),
+            covered=host_array(g_out["device_covered"]).astype(bool),
+            row_overflow=host_array(g_out["row_overflow"]))
+    return hosted
+
+
 def feed_step_groups(
     acc: ClusterAccumulator,
     out: dict,
@@ -540,6 +570,7 @@ def feed_step_groups(
     num_docs: int,
     edge_offset: int = 0,
     verifier=None,
+    stream: bool | None = None,
 ) -> StepFeed:
     """Feed one step output into a ``ClusterAccumulator``, group by group.
 
@@ -548,6 +579,10 @@ def feed_step_groups(
     feed the group's ``ShardedEdgeSource`` to the accumulator.  Edge ids
     are shifted by ``edge_offset`` and range-filtered to
     ``[0, num_docs)``.
+
+    ``stream=False`` brings every group's buffers to the host before the
+    loop; ``True`` brings each group's when the loop reaches it; ``None``
+    decides by ``_resolve_stream``.  The feed is the same in every mode.
 
     Returns the step's edge and overflow accounting; the overflow
     fallback stays with the caller.
@@ -558,17 +593,18 @@ def feed_step_groups(
         # the (group, device) buffers; treat it as a single group.
         groups = [out]
     device_scored = out.get("stage2") == "device"
+    hosted = (_host_group(g, device_scored) for g in groups)
+    if not _resolve_stream(stream, out["sig"].device):
+        hosted = list(hosted)
     m = out["sig"].shape[1]
 
     num_edges = 0
     row_overflow = 0
     group_stats = []
     device_stats_parts = []
-    for g_out in groups:
-        g_stats = host_array(g_out["stats"])
+    for g in hosted:
+        g_stats, edges, mask = g["stats"], g["edges"], g["edge_mask"]
         device_stats_parts.append(g_stats)
-        edges = host_u32(g_out["edges"])
-        mask = host_array(g_out["edge_mask"]).astype(bool)
         source = ShardedEdgeSource.from_device_buffers(
             edges, mask, num_docs=num_docs, num_shards=g_stats.shape[0],
             edge_offset=edge_offset)
@@ -577,14 +613,12 @@ def feed_step_groups(
             # float32 in float64, and the registry would then hold other
             # bits than the host estimator's correctly rounded float32.
             local = edges.astype(np.int64) - int(edge_offset)
-            sims = (host_array(g_out["device_match_counts"])
-                    .astype(np.float32) / np.float32(m))
-            covered = host_array(g_out["device_covered"]).astype(bool)
-            reg = (mask & covered
+            sims = g["counts"].astype(np.float32) / np.float32(m)
+            reg = (mask & g["covered"]
                    & (local >= 0).all(axis=-1)
                    & (local < num_docs).all(axis=-1))
             verifier.add_scores(local[reg], sims[reg])
-            row_overflow += int(host_array(g_out["row_overflow"]).sum())
+            row_overflow += int(g["row_overflow"].sum())
         num_edges += source.num_edges
         group_stats.append(acc.feed(source, verifier=verifier))
 
@@ -612,6 +646,7 @@ def cluster_step_output(
     doc_id_base: int = 0,
     overflow_fallback: bool = True,
     batch_pairs: int = 8192,
+    stream: bool | None = None,
 ) -> ShardedClusterResult:
     """Stage 2 of the sharded path: full-signature verify and merge.
 
@@ -633,6 +668,9 @@ def cluster_step_output(
     ``overflow_fallback``, the candidates are derived again on the host
     from the step's own signatures (``BandMatrixSource``) and fed
     through the same accumulator, so no candidate is lost.
+
+    ``stream`` is ``feed_step_groups``'s: when each group's buffers come
+    to the host; the result is the same.
     """
     sig = out["sig"]
     num_docs = sig.shape[0] if num_docs is None else int(num_docs)
@@ -647,7 +685,7 @@ def cluster_step_output(
 
     feed = feed_step_groups(
         acc, out, cfg, num_docs=num_docs, edge_offset=doc_id_base,
-        verifier=verifier)
+        verifier=verifier, stream=stream)
 
     retried = False
     if feed.overflow > 0 and overflow_fallback:

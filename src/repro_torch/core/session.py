@@ -35,6 +35,16 @@ The read path publishes an immutable ``SessionView``
 (``DedupSession.view``), which ``core.query`` and
 ``serving.dedup_service.DedupQueryService`` serve.
 
+The sharded backend (``backend="sharded"``) runs one
+``dist_lsh.make_streamed_dedup_step`` call a chunk, with global doc ids
+from the allocator, over a ``dist_lsh.DocsMesh`` (one process a card;
+every rank runs the same session on the gathered step outputs), and
+feeds the step's band-group edge buffers into the accumulator through
+``dist_lsh.feed_step_groups``; with ``stage2="device"`` the step's own
+scores register with the session's ``DeviceScoredEdgeVerifier``.  An
+overflowed step is re-derived on the host from its signatures (the
+retry), before the chunk's cross-step pass.
+
 A ``retention.RetentionPolicy`` bounds the retained state: each merge
 is followed by a sweep that evicts the rows of docs that lost roothood
 (outside an LRU window) and rewrites their band-index entries onto
@@ -47,8 +57,11 @@ signatures and bands through the ``DedupPipeline`` stages (K1, K3 and
 K4, or K6 with byte ingest), the kernel verify backend through K2, and
 ``refine``'s re-band of the representatives through K5 when
 ``config.use_kernels`` is on, and a sqlite streaming session's verify
-through K2'.  Not ported yet, and raising ``NotImplementedError``: the
-sharded backend (``ROADMAP.md`` queue 1, item 4).
+through K2'.  A sharded session runs the step's K1 (or K6 -> K1), K7 for
+``stage2="device"``, and K2 for every host verify.  Not ported yet, and
+raising ``NotImplementedError``: a sharded session with a retention
+policy or over the sqlite index (``ROADMAP.md`` queue 1, item 4, second
+part).
 """
 from __future__ import annotations
 
@@ -78,6 +91,7 @@ from repro_torch.core.retention import (
 from repro_torch.core.unionfind import ThresholdUnionFind
 from repro_torch.core.verify import (
     BatchVerifier,
+    DeviceScoredEdgeVerifier,
     ExactJaccardVerifier,
     SignatureVerifier,
     as_verifier,
@@ -87,7 +101,8 @@ from repro_torch.kernels import bandfold
 
 BACKENDS = ("host", "streaming", "sharded")
 
-_ITEM4 = "is not ported yet (ROADMAP.md, queue 1 item 4: sharded session)"
+_ITEM4_PART2 = ("is not ported yet (ROADMAP.md, queue 1 item 4, second "
+                "part: retention and the sqlite index over sharded steps)")
 
 
 class DocIdAllocator:
@@ -269,13 +284,17 @@ class ClusterSnapshot:
 
     ``labels`` is a read-only copy, ``stats`` a counter copy and
     ``pairs`` a fresh list, so later ingests never change a snapshot.
-    The reference's sharded counters come with the sharded session.
     """
 
     n_docs: int                 # docs ingested so far (id upper bound)
     labels: np.ndarray          # (n_docs,) cluster root per doc (frozen)
     stats: ClusterStats         # cumulative engine counters (a copy)
     pairs: list                 # every evaluated (a, b, sim) so far (a copy)
+    overflow: int = 0           # sharded: device buffer overflow so far
+    retried: int = 0            # sharded: overflow retries run
+    device_scored: int = 0      # sharded stage2=device: pass-throughs
+    host_rescored: int = 0      # sharded stage2=device: host re-scores
+    row_overflow: int = 0       # sharded: cross-shard row-buffer overflow
     # Retained state (sessions with a retention policy):
     retained_rows: int = 0      # live verifier rows (== n_docs unevicted)
     evicted: int = 0            # rows released by the retention policy
@@ -384,7 +403,8 @@ class SessionView:
 
 
 class DedupSession:
-    """Long-lived incremental dedup over the host or streaming backend.
+    """Long-lived incremental dedup over the host, streaming or sharded
+    backend.
 
     ``ingest(chunk)`` clusters one chunk of documents into the session
     and returns a cumulative ``ClusterSnapshot``; ``ingest_stream``
@@ -398,6 +418,12 @@ class DedupSession:
       (``store_path``, flushed every ``chunk_docs`` documents) and each
       merge re-scans the store; verification is the signature estimate
       unless ``verifier`` is given.
+    * ``"sharded"``: one sharded step a chunk (``dist_config``, a
+      ``dist_lsh.DistLSHConfig`` whose hash parameters must equal
+      ``config``'s; ``mesh``, default ``dist_lsh.docs_mesh(device)``),
+      its band groups fed into the accumulator (``stream``: see
+      ``dist_lsh.feed_step_groups``), then the cross-step ``BandIndex``
+      pass; verification is the signature estimate.
 
     ``device`` (``"cuda"`` unless told; raises without a CUDA device
     unless ``"cpu"`` is passed) is where the pipeline stages and the
@@ -413,25 +439,32 @@ class DedupSession:
         config: DedupConfig | None = None,
         backend: str = "host",
         *,
+        dist_config=None,
+        mesh=None,
         store_path: str = ":memory:",
         chunk_docs: int = 512,
         doc_id_base: int = 0,
         verifier: BatchVerifier | None = None,
+        stream: bool | None = None,
         retention: RetentionPolicy | None = None,
         device="cuda",
         _adopt_streaming=None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-        if backend == "sharded":
-            raise NotImplementedError(f"the sharded backend {_ITEM4}")
         self.config = config or DedupConfig()
+        if backend == "sharded" and (retention is not None
+                                     or self.config.store == "sqlite"):
+            raise NotImplementedError(
+                f"a sharded session with a retention policy or "
+                f"store='sqlite' {_ITEM4_PART2}")
         self.backend = backend
         self.device = resolve_device(device)
         self.allocator = DocIdAllocator(doc_id_base)
         self._verifier = as_verifier(verifier) if verifier is not None \
             else None
         self._external_verifier = verifier is not None
+        self._est_verifier: SignatureVerifier | None = None
         self.acc = ClusterAccumulator(
             int(doc_id_base), _NullVerifier(), self.config.edge_threshold,
             self.config.tree_threshold,
@@ -461,6 +494,9 @@ class DedupSession:
                           else 4),
             track_entries=retention is not None, **index_kw)
         self.seeds = minhash.default_seeds(self.config.num_hashes)
+        self.overflow = 0
+        self.retried = 0
+        self.row_overflow = 0
         self.steps_ingested = 0
         self.refine_merges = 0
         self.refines_run = 0
@@ -472,7 +508,8 @@ class DedupSession:
         # ``merge_s`` (retain, the chunk's band matrix, the cross-step
         # pass), ``cross_step_s`` (BandIndex.match_then_insert and the
         # verify of its edges), ``cross_step_edges``, the retention
-        # sweep's ``sweep_s``, the last refine's
+        # sweep's ``sweep_s``, a sharded merge's ``feed_s`` (its band
+        # groups, waiting for the step included), the last refine's
         # ``refine_s``, ``refine_band_s`` (re-band and bucket walk),
         # ``refine_pairs`` and ``refine_merges``, and the snapshot's
         # ``labels_s`` and ``pairs_s``.
@@ -483,10 +520,13 @@ class DedupSession:
         self._view_version = 0
         if backend == "host":
             self._impl = _HostBackend(self)
-        else:
+        elif backend == "streaming":
             self._impl = _StreamingBackend(self, store_path=store_path,
                                            chunk_docs=chunk_docs,
                                            adopt=_adopt_streaming)
+        else:
+            self._impl = _ShardedBackend(self, dist_config=dist_config,
+                                         mesh=mesh, stream=stream)
 
     @classmethod
     def over_store(cls, sd, *, config: DedupConfig | None = None,
@@ -551,7 +591,8 @@ class DedupSession:
         """The cumulative cluster state as a value object.  Records
         ``labels_s`` and ``pairs_s`` (building each copy) in
         ``stage_timings``."""
-        retained = getattr(self._verifier, "n_live_rows", None)
+        v = self._verifier
+        retained = getattr(v, "n_live_rows", None)
         t0 = time.perf_counter()
         labels = self.uf.components()[: self.n_docs]
         labels.setflags(write=False)
@@ -564,6 +605,11 @@ class DedupSession:
             labels=labels,
             stats=replace(self.acc.stats),
             pairs=pairs,
+            overflow=self.overflow,
+            retried=self.retried,
+            device_scored=getattr(v, "n_passthrough", 0),
+            host_rescored=getattr(v, "n_rescored", 0),
+            row_overflow=self.row_overflow,
             retained_rows=retained if retained is not None else self.n_docs,
             evicted=(self.retention.n_evicted
                      if self.retention is not None else 0),
@@ -863,8 +909,11 @@ class DedupSession:
                 full = (torch.cat([u32_from_numpy(blank, sig.device), sig])
                         if isinstance(sig, torch.Tensor)
                         else np.concatenate([blank, sig]))
-            self._verifier = SignatureVerifier(
-                full, backend=cfg.resolved_backend(), device=self.device)
+            cls = (DeviceScoredEdgeVerifier
+                   if self.backend == "sharded"
+                   and self._impl.stage2 == "device" else SignatureVerifier)
+            self._verifier = cls(full, backend=cfg.resolved_backend(),
+                                 device=self.device)
         elif self._wants_exact():
             self._verifier.extend_token_lists(token_lists)
         else:
@@ -874,9 +923,23 @@ class DedupSession:
         return self.backend == "host" and self.config.exact_verification
 
     def _estimate_verifier(self) -> BatchVerifier:
-        """The verifier for cross-step edges: the session's own (the
-        device-scored registry of the sharded backend is not ported)."""
-        return self._verifier
+        """The verifier for host-made edges (cross-step, the overflow
+        retry, ``refine``).
+
+        A ``stage2="device"`` session's own verifier counts registry
+        pass-throughs and host re-scores; host-made edges must not count
+        as ``n_rescored``, so they go through a shared plain estimator
+        over the same rows: the same float32 bits, the same sim cache.
+        """
+        if not isinstance(self._verifier, DeviceScoredEdgeVerifier):
+            return self._verifier
+        if self._est_verifier is None:
+            self._est_verifier = SignatureVerifier(
+                np.zeros((0, self.config.num_hashes), dtype=np.uint32),
+                backend=self.config.resolved_backend(), device=self.device)
+        # Re-adopt every use: chunk extensions regrow the buffers.
+        self._est_verifier.adopt_layout(self._verifier)
+        return self._est_verifier
 
     def _feed_cross_step(self, bands: np.ndarray, base: int) -> int:
         """Cross-step candidates: chunk bands vs the retained index.
@@ -1053,3 +1116,128 @@ class _StreamingBackend:
         """The retention hook: rewrite evicted docs' store rows onto
         their roots (``DedupSession._compact_band_store``)."""
         self.sd.store.compact(doc_ids, root_of)
+
+
+class _ShardedBackend:
+    """One ``dist_lsh.make_streamed_dedup_step`` call a chunk, one
+    accumulator across all of them."""
+
+    def __init__(self, sess: DedupSession, *, dist_config, mesh,
+                 stream: bool | None):
+        from repro_torch.core import dist_lsh
+
+        self.sess = sess
+        cfg = sess.config
+        self.dcfg = dist_config or dist_lsh.DistLSHConfig(
+            ngram=cfg.ngram, num_hashes=cfg.num_hashes,
+            rows_per_band=cfg.rows_per_band,
+            edge_threshold=cfg.edge_threshold,
+            fused_ingest=cfg.fused_ingest,
+            byte_ingest=cfg.byte_ingest)
+        # The session's retained signatures, seeds and band index come
+        # from the DedupConfig, the step's from the DistLSHConfig: they
+        # must share one hash space (byte_ingest flips the step's input).
+        for f in ("ngram", "num_hashes", "rows_per_band", "byte_ingest"):
+            if getattr(cfg, f) != getattr(self.dcfg, f):
+                raise ValueError(
+                    f"DedupConfig.{f}={getattr(cfg, f)} does not match "
+                    f"DistLSHConfig.{f}={getattr(self.dcfg, f)}; the "
+                    "session's retained signatures/bands must share the "
+                    "sharded step's hash parameters")
+        self.mesh = mesh if mesh is not None else dist_lsh.docs_mesh(
+            sess.device)
+        dev = self.mesh.device
+        if dev.type != sess.device.type or (
+                sess.device.index is not None
+                and dev.index != sess.device.index):
+            raise ValueError(f"the mesh runs on {dev}, the session on "
+                             f"{sess.device}")
+        self.stream = stream
+        self.n_dev = self.mesh.n_dev
+        self._step = None
+
+    @property
+    def stage2(self) -> str:
+        return self.dcfg.stage2
+
+    def _get_step(self):
+        if self._step is None:
+            from repro_torch.core.dist_lsh import make_streamed_dedup_step
+
+            self._step = make_streamed_dedup_step(self.dcfg, self.mesh)
+        return self._step
+
+    def _run_step(self, base: int, data, lengths, n_padded: int):
+        d_loc = n_padded // self.n_dev
+        offsets = DocIdAllocator.device_offsets(base, d_loc, self.n_dev)
+        return self._get_step()(data, lengths, self.sess.seeds, offsets)
+
+    def dispatch(self, chunk, tokenized: bool = False):
+        """Allocate the chunk's ids and run its step.  The chunk is padded
+        to a multiple of the shard count with ``["pad"]`` documents
+        (``"pad"`` with byte ingest); their ids lie above the chunk's
+        block, and the merge range-filters them."""
+        sess = self.sess
+        if self.dcfg.byte_ingest:
+            docs = [" ".join(t) for t in chunk] if tokenized else list(chunk)
+        else:
+            docs = chunk if tokenized else [shingle.tokenize(t)
+                                            for t in chunk]
+        n_real = len(docs)
+        base = sess.allocator.allocate(n_real)
+        if n_real == 0:
+            return (base, docs, 0, None)
+        pad = (-n_real) % self.n_dev
+        if self.dcfg.byte_ingest:
+            # The text "pad" hashes to the token path's ["pad"] row.
+            padded = docs + ["pad"] * pad
+            packed = shingle.pack_bytes(padded, shingle.pow2_bucket(
+                max(len(d.encode("utf-8")) for d in padded) + 1))
+            data = packed.data
+        else:
+            padded = docs + [["pad"]] * pad
+            packed = shingle.pack_documents(padded)
+            data = packed.tokens
+        out = self._run_step(base, data, packed.lengths, len(padded))
+        return (base, docs, n_real, out)
+
+    def merge(self, pending):
+        """Feed the step's band groups, the retry if a buffer overflowed,
+        then the cross-step pass.  Records ``merge_s``, ``feed_s``,
+        ``cross_step_s`` and ``cross_step_edges`` in the session's
+        ``stage_timings``."""
+        from repro_torch.core.dist_lsh import feed_step_groups
+
+        base, toks, n_real, out = pending
+        if out is None:
+            return
+        sess = self.sess
+        t0 = time.perf_counter()
+        # The gathered rows stay on the device unless the verify backend
+        # is numpy's; pad rows never reach the verifier.
+        sig = out["sig"][:n_real]
+        sess._retain(toks, u32_to_numpy(sig)
+                     if sess.config.resolved_backend() == "numpy" else sig)
+        sess.n_merged = base + n_real
+        sess.acc.grow(sess.n_docs)
+        feed = feed_step_groups(
+            sess.acc, out, self.dcfg, num_docs=base + n_real,
+            edge_offset=0, verifier=sess._verifier, stream=self.stream)
+        sess.overflow += feed.overflow
+        sess.row_overflow += feed.row_overflow
+        t1 = time.perf_counter()
+        bands = u32_to_numpy(lsh.band_values(sig, self.dcfg.rows_per_band))
+        if feed.overflow > 0:
+            # A buffer dropped this chunk's edges: derive its candidates
+            # on the host through the same engine (cross-step edges are
+            # host-made and unbounded, so only the chunk's own can be lost).
+            sess.retried += 1
+            sess.acc.feed(BandMatrixSource(bands, doc_id_base=base),
+                          verifier=sess._estimate_verifier())
+        t2 = time.perf_counter()
+        n_edges = sess._feed_cross_step(bands, base)
+        t3 = time.perf_counter()
+        sess.steps_ingested += 1
+        sess.stage_timings.update(merge_s=t3 - t0, feed_s=t1 - t0,
+                                  cross_step_s=t3 - t2,
+                                  cross_step_edges=n_edges)

@@ -1,5 +1,5 @@
-"""Dedup command line of the port: the host and streaming modes of
-``repro.launch.dedup``.
+"""Dedup command line of the port: the host, streaming and sharded modes
+of ``repro.launch.dedup``.
 
 The corpus is split into ``--steps`` chunks and ingested through one
 ``core.session.DedupSession``; one report line gives the cumulative
@@ -18,7 +18,13 @@ with ``--byte-ingest``, K2 with ``--backend kernel``, K5 in ``refine``
 with ``--use-kernels``).
 ``--retain-budget`` bounds the session's retained rows and band keys
 (``RetentionPolicy.preset``) and ``--refine-every K`` runs the second
-clustering round every K steps.
+clustering round every K steps.  ``--sharded`` runs each step through
+``core.dist_lsh``'s sharded step (``--band-groups`` edge buffers, the
+full-signature verify on the host merge or, with ``--stage2 device``,
+on the card through K7) over a process group: the one ``torchrun``
+starts (``--devices`` 0 or its world size), else a group of one rank
+that the command makes itself (NCCL on the card, gloo with ``--device
+cpu``; ``--devices`` 0 or 1).
 
   PYTHONPATH=src python -m repro_torch.launch.dedup --notes 500 --dups 300
   PYTHONPATH=src python -m repro_torch.launch.dedup --steps 4 --fused-ingest \\
@@ -29,13 +35,19 @@ clustering round every K steps.
       --steps 4 --fused-ingest --estimate --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.dedup --streaming --estimate \\
       --store sqlite --store-path bands.db
+  PYTHONPATH=src python -m repro_torch.launch.dedup --sharded --steps 4 \\
+      --fused-ingest --stage2 device --band-groups 5
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.dedup \\
+      --sharded --steps 4 --fused-ingest
 
-The sharded mode is not ported yet: ``--sharded`` exits with a message
-naming its ``ROADMAP.md`` queue item.
+``--sharded`` with ``--retain-budget``, ``--refine-every`` or ``--store
+sqlite`` is not ported yet, and exits naming its ``ROADMAP.md`` queue
+item.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -129,7 +141,18 @@ def main(argv=None):
                     help="sqlite database path for the store tier "
                          "(default :memory:)")
     ap.add_argument("--sharded", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1 item 4)")
+                    help="run each step through the sharded step "
+                         "(core.dist_lsh) over a process group")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="sharded mode: the shard count, checked against "
+                         "the process group (0: the group's)")
+    ap.add_argument("--band-groups", type=int, default=1,
+                    help="sharded mode: G bounded edge buffers of b/G "
+                         "bands each")
+    ap.add_argument("--stage2", default="host", choices=("host", "device"),
+                    help="sharded mode: the full-signature verify on the "
+                         "host merge, or on the device (K7; cross-shard "
+                         "edges through the exchanged row buffers)")
     ap.add_argument("--retain-budget", default="none",
                     choices=("none", "small", "medium", "unlimited"),
                     help="bounded retained state: evict non-root rows past "
@@ -146,8 +169,11 @@ def main(argv=None):
                          "lookups; identical clusters either way). "
                          "Default: $REPRO_STORE_BACKEND or memory")
     args = ap.parse_args(argv)
-    if args.sharded:
-        ap.error("--sharded is not ported yet: ROADMAP.md queue 1 item 4")
+    if args.sharded and (args.retain_budget != "none" or args.refine_every
+                         or args.store == "sqlite"):
+        ap.error("--sharded with --retain-budget, --refine-every or "
+                 "--store sqlite is not ported yet: ROADMAP.md queue 1 "
+                 "item 4, second part")
 
     import numpy as np
 
@@ -178,6 +204,10 @@ def main(argv=None):
         verify_batch=args.batch,
         # None falls back to the field default ($REPRO_STORE_BACKEND).
         **({"store": args.store} if args.store else {}))
+
+    if args.sharded:
+        run_sharded(ap, args, cfg, notes, chunks)
+        return
 
     if args.streaming:
         from repro_torch.core.shingle import tokenize
@@ -220,6 +250,80 @@ def main(argv=None):
     report_session(f"host[{args.steps} step(s)]", snap, dt)
     if args.query:
         run_query_demo(sess, notes, args.query)
+
+
+def process_group(ap, args):
+    """The sharded mode's process group: the default group if one is
+    initialized, or the one ``torchrun`` describes in the environment,
+    else one rank made here over an in-memory store (NCCL on the card,
+    gloo on the CPU).  Returns whether this call made it, so the caller
+    destroys it.  ``--devices`` must be 0 or the group's size."""
+    import torch
+    import torch.distributed as dist
+
+    made = False
+    cpu = torch.device(args.device).type == "cpu"
+    if not dist.is_initialized():
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        backend = "gloo" if cpu else "nccl"
+        if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+        made = True
+    world = dist.get_world_size()
+    if args.devices not in (0, world):
+        if made:
+            dist.destroy_process_group()
+        ap.error(f"--devices {args.devices} does not match the process "
+                 f"group's {world} rank(s); start one process a rank with "
+                 "torchrun")
+    return made
+
+
+def run_sharded(ap, args, cfg, notes, chunks):
+    """``--sharded``: one sharded ``DedupSession`` over ``chunks``, with
+    estimate verification (the step's verify is the signature
+    estimate); every rank runs it, rank 0 reports."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from repro_torch.core import DedupSession, DistLSHConfig
+
+    made = process_group(ap, args)
+    try:
+        dcfg = DistLSHConfig(edge_threshold=args.edge_threshold,
+                             edge_capacity=8192,
+                             band_groups=args.band_groups,
+                             stage2=args.stage2,
+                             fused_ingest=args.fused_ingest,
+                             byte_ingest=args.byte_ingest)
+        sess = DedupSession(replace(cfg, exact_verification=False),
+                            backend="sharded", dist_config=dcfg,
+                            device=args.device)
+        t0 = time.perf_counter()
+        for snap in sess.ingest_stream(chunks):
+            pass
+        dt = time.perf_counter() - t0
+        if dist.get_rank() != 0:
+            return
+        extra = (f", {snap.overflow} overflow"
+                 f"{' (host fallback ran)' if snap.retried else ''}")
+        if args.stage2 == "device":
+            extra += (f", stage2=device {snap.device_scored} "
+                      f"device-scored / {snap.host_rescored} "
+                      f"host-rescored / {snap.row_overflow} row-overflow")
+        report_session(
+            f"sharded[{dist.get_world_size()} devices x {dcfg.band_groups} "
+            f"band-group(s) x {args.steps} step(s)]", snap, dt, extra)
+        if args.query:
+            run_query_demo(sess, notes, args.query)
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -512,6 +512,35 @@ def test_sharded_step_over_nccl_matches_gloo(cuda, tmp_path):
                        nprocs=world, join=True, start_method="spawn")
 
 
+def test_sharded_session_on_card_matches_cpu(cuda):
+    """A one-shard sharded session with device stage 2 over 3 chunks (K1
+    once a chunk, K7 once a band group a chunk, K2 on the cross-step
+    edges) equals the same session on the CPU, snapshot for snapshot."""
+    notes, _ = inject_near_duplicates(make_i2b2_like(200, seed=0), 100,
+                                      seed=1)
+    # Shuffled, so chunks hold duplicates of their own (device-scored)
+    # and of earlier chunks (cross-step).
+    order = np.random.RandomState(2).permutation(len(notes))
+    chunks = [[notes[i] for i in idx] for idx in np.array_split(order, 3)]
+    cfg = DedupConfig(fused_ingest=True, exact_verification=False,
+                      verify_backend="kernel")
+    dcfg = DistLSHConfig(fused_ingest=True, band_groups=5, stage2="device",
+                         edge_capacity=4096, bucket_slack=16.0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        k1.launches = k2.launches = k2.masked_launches = 0
+        sess = DedupSession(cfg, backend="sharded", dist_config=dcfg,
+                            device=device)
+        out[device] = [(s.labels.tolist(), s.pairs, s.overflow, s.retried,
+                        s.device_scored, s.host_rescored, s.row_overflow)
+                       for s in sess.ingest_stream(chunks)]
+        launched = (k1.launches, k2.masked_launches, k2.launches)
+    assert out["cuda"] == out["cpu"]
+    assert launched[0] == len(chunks)
+    assert launched[1] == len(chunks) * dcfg.band_groups
+    assert launched[2] > 0 and out["cuda"][-1][4] > 0
+
+
 # -- K8: flash attention ---------------------------------------------------------
 
 def _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, device, seed=0, Dv=None):

@@ -3,8 +3,9 @@
 Both run in process on the same flags (the port with ``--device cpu``);
 their report lines must agree in every count, the retention clause
 included, in host and streaming mode, over either store tier.  The
-sharded mode, a later slice, exits with a message naming its ROADMAP.md
-queue item.
+sharded mode's report is held in ``tests/test_torch_sharded_session.py``;
+with retention or the sqlite tier it exits, a later slice, with a message
+naming its ROADMAP.md queue item.
 """
 import re
 
@@ -87,7 +88,9 @@ def test_sqlite_store_report_matches_reference(mode, head, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--sharded"], "item 4"),
+    (["--sharded", "--retain-budget", "small"], "item 4, second part"),
+    (["--sharded", "--refine-every", "2"], "item 4, second part"),
+    (["--sharded", "--store", "sqlite"], "item 4, second part"),
 ])
 def test_later_slices_exit_with_their_queue_item(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -223,17 +223,27 @@ def test_pipeline_run_through_the_session_keeps_its_result():
 
 
 def test_later_slices_raise_not_implemented():
-    """The sharded backend waits for its queue item; the streaming backend
-    and ``over_store`` are ported and equal the reference's
+    """A sharded session with a retention policy or over the sqlite index
+    waits for its queue item (the sharded session itself is ported:
+    ``tests/test_torch_sharded_session.py``); the streaming backend and
+    ``over_store`` are ported and equal the reference's
     (``tests/test_torch_streaming.py`` has the rest), as are retention,
     ``refine`` and the bounded ``BandIndex``
     (``tests/test_torch_retention.py``)."""
+    from repro_torch.core import RetentionPolicy
     from repro_torch.core.streaming import StreamingDedup
     import repro.core.streaming as ref_streaming
 
     cfg = DedupConfig(store="memory")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        DedupSession(cfg, device="cpu", backend="sharded")
+    item = "queue 1 item 4, second part"
+    with pytest.raises(NotImplementedError, match=item):
+        DedupSession(cfg, device="cpu", backend="sharded",
+                     retention=RetentionPolicy(lru_window=8))
+    with pytest.raises(NotImplementedError, match=item):
+        DedupSession(DedupConfig(store="sqlite"), device="cpu",
+                     backend="sharded")
+    assert DedupSession(cfg, device="cpu", backend="sharded").backend \
+        == "sharded"
     notes = _corpus(24, 12, seed=2)
     ref_cfg, port_cfg = _configs(exact_verification=False)
     ref = ref_session.DedupSession(ref_cfg, backend="streaming", chunk_docs=8)
