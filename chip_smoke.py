@@ -131,14 +131,14 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   ``kernels.ops.pair_estimate`` (K7's pre-gathered form, every lane
   valid) against its plain version and K2's estimates.
 * Phase F, K8 (flash attention) against its plain version: float32 at
-  test_kernels.py's four shapes and h2o-danube's prefill to 3e-5, each
-  timed beside its plain version and SDPA in float32, bf16 at h2o-danube's,
-  olmo's and gemma's prefill shapes to a bound of bf16's rounding (and
-  to 2e-2), each bf16 shape timed beside the plain version and
+  test_kernels.py's four shapes and at h2o-danube's, olmo's and gemma's
+  prefill shapes to 3e-5, each timed beside its plain version and SDPA
+  in float32; bf16 at the three prefill shapes to a bound of bf16's
+  rounding (and to 2e-2), each timed beside the plain version and
   ``scaled_dot_product_attention``.  The built library's SASS shows
   tensor-core HMMA instructions in every bf16 instantiation and none in
   the float32 kernel; ptxas's registers, shared memory and spills (none
-  allowed in the bf16 kernel) and K8's own build time are printed.
+  allowed in any instantiation) and K8's own build time are printed.
 * Phase M, serving h2o-danube-1.8b at full width: in float32, K8
   against ``blockwise_attention`` in every layer of a 6,144-token
   prefill and end to end at two layers; in bf16, ``serve_batch``
@@ -2871,13 +2871,13 @@ def d1_vs_one_shot(snap, one: dict) -> dict:
 # -- phase F: K8 against its plain version ----------------------------------------
 
 # test_kernels.py's four float32 shapes (B, S, H, Hkv, Dh, window) and the
-# prefills of three head widths in bf16: h2o-danube's long prompt (past
-# its window), olmo's and gemma's.
+# prefills of three head widths, timed in float32 and in bf16: h2o-danube's
+# long prompt (past its window), olmo's and gemma's.
 K8_F32_SHAPES = [(2, 64, 8, 2, 16, None), (1, 100, 4, 4, 8, None),
                  (2, 96, 8, 2, 16, 24), (1, 37, 6, 2, 16, None)]
-K8_BF16_SHAPES = {"h2o-danube-1.8b": (1, 6144, 32, 8, 80, 4096),
-                  "olmo-1b": (1, 2048, 16, 16, 128, None),
-                  "gemma-7b": (1, 1024, 16, 16, 256, None)}
+K8_PREFILL_SHAPES = {"h2o-danube-1.8b": (1, 6144, 32, 8, 80, 4096),
+                     "olmo-1b": (1, 2048, 16, 16, 128, None),
+                     "gemma-7b": (1, 1024, 16, 16, 256, None)}
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
 FP32_LANES = 128            # FP32 FMA lanes per SM and clock
 
@@ -2966,14 +2966,19 @@ def k8_ptxas(log: str) -> list[dict]:
 
 def k8_sass(lib_path) -> dict:
     """HMMA (tensor-core) instruction counts of each K8 instantiation in
-    the built library's SASS, and how many of them take TF32."""
+    the built library's SASS, and how many of them take TF32; beside them
+    the listing's static mix: instructions, FFMA and shared-memory loads."""
     out = {}
     for fname, f in sass_functions(lib_path).items():
         name = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E", fname)
         if name:
             ops = re.findall(r"\bHMMA(\.[A-Z0-9_.]*)?", f)
+            mix = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?"
+                             r"([A-Z][A-Z0-9_]*)", f)
             out[f"{name.group(1)}_{name.group(2)}"] = {
-                "hmma": len(ops), "tf32_hmma": sum("TF32" in o for o in ops)}
+                "hmma": len(ops), "tf32_hmma": sum("TF32" in o for o in ops),
+                "instructions": len(mix), "ffma": mix.count("FFMA"),
+                "lds": mix.count("LDS")}
     return out
 
 
@@ -2996,17 +3001,57 @@ def bf16_bound(want, vbar):
     return 2**-7 * want.abs() + 2**-8 * vbar + 1e-5
 
 
+def k8_inputs(torch, g, B, S, H, Hkv, Dh, dtype):
+    """Unit-normal q (B, S, H, Dh), k and v (B, S, Hkv, Dh) on the card,
+    drawn from the generator ``g``."""
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, S, H, Dh), (B, S, Hkv, Dh),
+                               (B, S, Hkv, Dh)))
+
+
+def k8_f32_cases(torch, k8, g, clock_hz: float):
+    """K8 float32 (the module ``k8``) at the tests' four shapes, then the
+    three prefill shapes, on ``k8_inputs`` from ``g``: each held to its
+    ``flash_attention_plain`` to 3e-5 and timed by CUDA events (5
+    launches) with its bound; at h2o-danube's also nvidia-smi's SM clock
+    under its load, the clock the operations bound assumes.  Yields
+    (row, q, k, v, plain output) a shape.  Phase F and
+    ``tools/time_k8_f32.py`` both run it, so between them only ``k8``
+    differs."""
+    for arch, shape in ([(None, s) for s in K8_F32_SHAPES]
+                        + list(K8_PREFILL_SHAPES.items())):
+        q, k, v = k8_inputs(torch, g, *shape[:5], torch.float32)
+        window = shape[5]
+        got = k8.flash_attention(q, k, v, window=window)
+        want = k8.flash_attention_plain(q, k, v, window=window)
+        check(torch.allclose(got, want, atol=3e-5, rtol=0),
+              f"K8 float32 == plain to 3e-5 at {shape}")
+        r = {"arch": arch, "shape": shape,
+             "max_abs_err": float((got - want).abs().max()),
+             "ms": cuda_ms(torch, lambda: k8.flash_attention(
+                 q, k, v, window=window), 5),
+             **k8_bound(torch, shape, torch.float32, clock_hz)}
+        r["ms_over_bound"] = r["ms"] / r["bound_ms"]
+        if arch == M_ARCH:
+            r["clocks_under_load"] = clocks_under_load(
+                torch, lambda: k8.flash_attention(q, k, v, window=window),
+                200)
+        del got
+        yield r, q, k, v, want
+
+
 def phase_f(torch, clock_hz: float, lib_path, log: str) -> dict:
     """K8 against ``flash_attention_plain`` on the card: float32 to 3e-5
-    at the tests' four shapes and h2o-danube's prefill, each timed beside
-    its plain version and SDPA in float32 with its bound;
+    at the tests' four shapes and the three prefill shapes, each timed
+    beside its plain version and SDPA in float32 with its bound;
     bf16 to ``bf16_bound`` on unit-normal inputs, and to the coarser
     atol = rtol = 2e-2.  A mask off by one key (window + 1; every query
     one position later) must exceed the bound.  Timed beside its plain
-    version and SDPA at the bf16 prefill shapes, with the ratio to
+    version and SDPA at the prefill shapes, with the ratio to
     ``K8_TARGET_MS`` and to SDPA reported.  First the build: every bf16
-    instantiation holds HMMA instructions and spills nothing, the float32
-    kernel holds no HMMA (so no TF32)."""
+    instantiation holds HMMA instructions, the float32 kernel holds no
+    HMMA (so no TF32), and no instantiation spills."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as k8
     from repro_torch.models.attention import blockwise_attention
 
@@ -3024,51 +3069,38 @@ def phase_f(torch, clock_hz: float, lib_path, log: str) -> dict:
           f"K8 bf16: HMMA in every instantiation ({sass})")
     check(all(sass[f"f32_{t}"]["hmma"] == 0 for t in tiers["f32"]),
           f"K8 float32: no HMMA, so no TF32 ({sass})")
-    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in ptxas
-              if r["kernel"] == "bf16"), f"K8 bf16: no spills ({ptxas})")
+    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in ptxas),
+          f"K8 bf16 and float32: no spills ({ptxas})")
     nvcc_s = nvcc_seconds(log)
+    smem = build.library().flash_attention_f32_smem_bytes
     emit(k8_build={"ptxas": ptxas, "sass": sass, "nvcc_s": {
-        name: nvcc_s.get(name) for name in K8_SOURCES}})
+        name: nvcc_s.get(name) for name in K8_SOURCES},
+        "f32_dynamic_smem_bytes": {t: smem(t) for t in tiers["f32"]}})
 
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
-
-    def inputs(B, S, H, Hkv, Dh, dtype):
-        return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
-                     for shape in ((B, S, H, Dh), (B, S, Hkv, Dh),
-                                   (B, S, Hkv, Dh)))
-
     f32 = []
-    # The float32 kernel at the tests' shapes, then at phase M's float32
-    # gate (h2o-danube's 6,144-token prefill), each timed beside its plain
-    # version and SDPA in float32 (IEEE products: no TF32).
+    # The float32 kernel at the tests' shapes, then at the three prefill
+    # shapes (h2o-danube's 6,144 tokens is phase M's float32 gate), each
+    # timed beside its plain version and SDPA in float32 (IEEE products:
+    # no TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
-    for shape in K8_F32_SHAPES + [K8_BF16_SHAPES[M_ARCH]]:
-        q, k, v = inputs(*shape[:5], torch.float32)
-        window = shape[5]
-        got = k8.flash_attention(q, k, v, window=window)
-        want = k8.flash_attention_plain(q, k, v, window=window)
-        check(torch.allclose(got, want, atol=3e-5, rtol=0),
-              f"K8 float32 == plain to 3e-5 at {shape}")
+    for r, q, k, v, want in k8_f32_cases(torch, k8, g, clock_hz):
+        window = r["shape"][5]
         call = sdpa_call(torch, q, k, v, window)
         lib = call().transpose(1, 2)
-        f32.append({
-            "shape": shape, "max_abs_err": float((got - want).abs().max()),
-            "ms": cuda_ms(torch, lambda: k8.flash_attention(
-                q, k, v, window=window), 5),
-            "plain_ms": cuda_ms(torch, lambda: k8.flash_attention_plain(
+        r.update(
+            plain_ms=cuda_ms(torch, lambda: k8.flash_attention_plain(
                 q, k, v, window=window), 2),
-            "library_ms": cuda_ms(torch, call, 5),
-            "library_backends": sdpa_backends(torch, call),
-            "library_max_abs_err": float((lib - want).abs().max()),
-            **k8_bound(torch, shape, torch.float32, clock_hz)})
-        r = f32[-1]
-        r.update(ms_over_library=r["ms"] / r["library_ms"],
-                 ms_over_bound=r["ms"] / r["bound_ms"])
-        del q, k, v, got, want, lib, call
+            library_ms=cuda_ms(torch, call, 5),
+            library_backends=sdpa_backends(torch, call),
+            library_max_abs_err=float((lib - want).abs().max()))
+        r["ms_over_library"] = r["ms"] / r["library_ms"]
+        f32.append(r)
+        del q, k, v, want, lib, call
     bf16 = {}
-    for arch, shape in K8_BF16_SHAPES.items():
-        q, k, v = inputs(*shape[:5], torch.bfloat16)
+    for arch, shape in K8_PREFILL_SHAPES.items():
+        q, k, v = k8_inputs(torch, g, *shape[:5], torch.bfloat16)
         window = shape[5]
         got = k8.flash_attention(q, k, v, window=window).float()
         want = k8.flash_attention_plain(q, k, v, window=window).float()
@@ -3352,8 +3384,11 @@ def phase_m(torch, k8_shapes: dict) -> dict:
     keep = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "max_err_over_bound")
     keep32 = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-              "library_backends", "bound_ms", "bound_by")
-    f32 = [{k: r[k] for k in keep32} for r in k8_shapes["float32"]]
+              "library_backends", "bound_ms", "bound_by", "ms_over_bound")
+    f32 = {r["arch"]: {k: r[k] for k in keep32}
+           for r in k8_shapes["float32"] if r["arch"]}
+    f32_tests = [{k: r[k] for k in keep32}
+                 for r in k8_shapes["float32"] if not r["arch"]]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "float32_source": "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
@@ -3364,8 +3399,10 @@ def phase_m(torch, k8_shapes: dict) -> dict:
             "other_shapes": {a: {k: r[k] for k in keep}
                              for a, r in k8_shapes["bf16"].items()
                              if a != M_ARCH},
-            "float32": {**f32[-1], "launches": f32_launches,
-                        "test_shapes": f32[:-1]}}
+            "float32": {**f32[M_ARCH], "launches": f32_launches,
+                        "other_shapes": {a: r for a, r in f32.items()
+                                         if a != M_ARCH},
+                        "test_shapes": f32_tests}}
 
 
 # -- phase B: paper-scale kernels -------------------------------------------------

@@ -51,6 +51,7 @@ _EXPORTS = {
     "byte_token_hashes_launch": ([_P, _P, _P, _P, _I64, _I, _U32, _P], _I),
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, ctypes.c_float, _I, _P], _I),
+    "flash_attention_f32_smem_bytes": ([_I], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -10,8 +10,9 @@
 // operand of the PV product; out = acc / max(l, 1e-30), so a row with
 // every key masked gives 0; masks k < Skv, k <= q (causal) and
 // k > q - window, positions from 0.  flash_attention_launch is the one
-// entry point: bf16 runs here, float32 on the IEEE-FMA kernel of
-// flash_attention_f32.cu (TF32 cannot meet the float32 tests' 3e-5).
+// entry point: bf16 runs here, float32 on the register-tiled IEEE-FMA
+// kernel of flash_attention_f32.cu (TF32 cannot meet the float32 tests'
+// 3e-5).
 //
 // What bounds it on this card (H100 SXM, 4 Dh flops per unmasked (q, k)
 // pair and head at the tensor cores' dense 989 TFLOP/s, against q, k, v

@@ -13,9 +13,11 @@ counted from 0.  p is cast to v's dtype before the PV product.
 For tensors on the card it launches a CUDA kernel through one C entry
 point (``csrc/flash_attention.cu``), which routes by dtype: bf16 to a
 tensor-core kernel (``mma.sync`` on 128 folded q rows a block, key
-tiles of 64, 48 at head width 80 and 32 at 256), float32 to an
-IEEE-FMA kernel (``csrc/flash_attention_f32.cu``), since TF32 would not
-meet the float32 tolerance.  Head widths up to 256.  For tensors on the CPU it runs
+tiles of 64, 48 at head width 80 and 32 at 256), float32 to a
+register-tiled kernel on IEEE FP32 FMAs (``csrc/flash_attention_f32.cu``:
+128 folded q rows a block up to width 80 and 64 above, key tiles of 32,
+each thread a 4-row micro-tile of S and of O), since TF32 would not meet
+the float32 tolerance.  Head widths up to 256.  For tensors on the CPU it runs
 ``flash_attention_plain``.  The reference's ``tq``, ``tk`` and
 ``interpret`` are the TPU's tiling and backend knobs; the kernels pick
 their own tiles.

@@ -551,12 +551,14 @@ def _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, device, seed=0, Dv=None):
                                (B, Skv, Hkv, Dv or Dh)))
 
 
-def _assert_k8_matches_plain(q, k, v, causal, window):
+def _assert_k8_matches_plain(q, k, v, causal, window, scale=None):
     k8.launches = 0
-    got = k8.flash_attention(q, k, v, causal=causal, window=window)
+    got = k8.flash_attention(q, k, v, causal=causal, window=window,
+                             scale=scale)
     torch.cuda.synchronize()
     assert k8.launches == 1 and got.dtype == q.dtype
-    want = k8.flash_attention_plain(q, k, v, causal=causal, window=window)
+    want = k8.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    scale=scale)
     assert got.shape == want.shape == q.shape[:3] + v.shape[3:]
     if q.dtype == torch.float32:  # IEEE FMAs in both, sums in another order
         torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
@@ -567,7 +569,7 @@ def _assert_k8_matches_plain(q, k, v, causal, window):
     # output, at most one unit in the last place (<= 2**-7 |want|) apart.
     want = want.float()
     vbar = k8.flash_attention_plain(q, k, v.abs(), causal=causal,
-                                    window=window).float()
+                                    window=window, scale=scale).float()
     bound = 2**-7 * want.abs() + 2**-8 * vbar + 1e-5
     assert bool(((got.float() - want).abs() <= bound).all())
 
@@ -586,6 +588,18 @@ def _assert_k8_matches_plain(q, k, v, causal, window):
     (4, 512, 512, 32, 8, 80, None, True),    # a serving batch
     (1, 333, 333, 32, 8, 80, 100, True),     # window not a key tile, ragged
     (2, 50, 50, 6, 2, 36, 20, True),         # Dh % 8 != 0: element copies
+    # The float32 kernel's edges: g = 32 (one KV head, four positions a
+    # row tile), many row and key tiles with a window off the key grid,
+    # one KV head with more keys than queries and no causal mask, and a
+    # multi-tile case in every tier (8, 36, 80, 128, 256).
+    (1, 200, 200, 32, 1, 80, None, True),
+    (1, 1000, 1000, 32, 8, 80, 300, True),
+    (2, 70, 300, 8, 1, 64, None, False),
+    (1, 257, 257, 4, 2, 8, 40, True),
+    (1, 190, 190, 6, 3, 36, None, True),
+    (1, 330, 330, 8, 4, 128, 100, True),
+    (1, 200, 200, 8, 2, 256, 70, True),
+    (1, 90, 90, 4, 2, 37, 30, True),         # Dh % 4 != 0: 4-byte copies
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, Dh,
@@ -598,12 +612,22 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, Dh,
     (1, 150, 150, 8, 2, 64, 80, 40, True),    # Dv > Dh: V staged wider
     (2, 70, 90, 6, 2, 64, 36, None, False),   # Dv % 8 != 0: element copies
     (1, 130, 130, 4, 4, 128, 64, None, True),  # Dv < Dh
+    (1, 120, 160, 8, 4, 64, 70, 50, True),    # Dv % 4 != 0, Skv > Sq
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain_with_value_width(
         cuda, B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, dtype):
     q, k, v = _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, cuda, Dv=Dv)
     _assert_k8_matches_plain(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_any_sign_of_scale(cuda, scale, dtype):
+    """A negative or zero scale: both kernels scale the scores before the
+    mask and the row max, as the plain version does."""
+    q, k, v = _attn_inputs(1, 200, 200, 8, 2, 80, dtype, cuda)
+    _assert_k8_matches_plain(q, k, v, True, 70, scale)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -7,10 +7,12 @@ tolerance is ``test_kernels.py``'s ``atol=3e-5``: the two online softmaxes
 visit the keys in tiles of other sizes, which changes only the float32
 rounding of their sums.
 
-``k8_schedule`` walks the CUDA bf16 kernel's schedule in torch on the CPU
-(the kernel itself runs only on the card), so its tile arithmetic is
-checked here against the reference's kernel.
+``k8_schedule`` and ``k8_f32_schedule`` walk the CUDA kernels' schedules
+(bf16 and float32) in torch on the CPU (the kernels themselves run only
+on the card), so their tile arithmetic is checked here against the
+reference's kernel.
 """
+import functools
 import re
 
 import numpy as np
@@ -185,12 +187,18 @@ def k8_schedule(q, k, v, *, causal=True, window=None, scale=None):
     p = exp2(s - m_safe) sums into l in float32 and is rounded to v's
     dtype only for PV.  Returns (B, Sq, H, Dv) in q's dtype.
     """
+    tier = next(t for t in K8_TIERS if max(q.shape[3], v.shape[3]) <= t)
+    return _tiled_flash(q, k, v, causal=causal, window=window, scale=scale,
+                        q_rows=K8_Q_ROWS, key_tile=k8_key_tile(tier))
+
+
+def _tiled_flash(q, k, v, *, causal, window, scale, q_rows, key_tile):
+    """The tile walk both K8 kernels share (see ``k8_schedule``)."""
     B, Sq, H, Dh = q.shape
     _, Skv, Hkv, Dv = v.shape
     g = H // Hkv
     rows = Sq * g
-    tier = next(t for t in K8_TIERS if max(Dh, Dv) <= t)
-    tk = k8_key_tile(tier)
+    tk = key_tile
     scale = np.float32(Dh**-0.5 if scale is None else scale)
     scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
 
@@ -207,8 +215,8 @@ def k8_schedule(q, k, v, *, causal=True, window=None, scale=None):
             qf = q[b, :, heads].reshape(rows, Dh).float()  # row pos * g + j
             kh, vh = k[b, :, hkv], v[b, :, hkv]
             of = torch.empty((rows, Dv), dtype=torch.float32)
-            for row0 in range(0, rows, K8_Q_ROWS):
-                r = torch.arange(row0, min(row0 + K8_Q_ROWS, rows))
+            for row0 in range(0, rows, q_rows):
+                r = torch.arange(row0, min(row0 + q_rows, rows))
                 pos = (r // g).tolist()
                 pmin, pmax = pos[0], pos[-1]
                 lo, hi = key_lo(pmin), key_hi(pmax)
@@ -227,13 +235,14 @@ def k8_schedule(q, k, v, *, causal=True, window=None, scale=None):
                     vt = torch.zeros((tk, Dv), dtype=v.dtype)
                     kt[live] = kh[keys[live]].float()
                     vt[live] = vh[keys[live]]
-                    s = (qf[r] @ kt.T) * scale_log2
+                    s = qf[r] @ kt.T * scale_log2
                     ok = (keys[None] >= klo[:, None]) & (keys[None] < khi[:, None])
                     if k0 < inner_lo or k0 + tk > inner_hi:
                         s = s.masked_fill(~ok, float("-inf"))
                     else:
                         assert bool(ok.all()), "interior tile needs a mask"
-                    m_new = torch.maximum(m, s.amax(dim=1))
+                    mx = s.amax(dim=1)
+                    m_new = torch.maximum(m, mx)
                     m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
                     corr = torch.where(torch.isfinite(m),
                                        torch.exp2(m - m_safe), 0.0)
@@ -269,17 +278,33 @@ SCHEDULE_SHAPES = [
 ]
 
 
-def _check_schedule(B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, dtype):
+@functools.lru_cache(maxsize=None)
+def _schedule_case(B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, dtype,
+                   scale=None):
+    """Inputs of one schedule case and the reference's output on them,
+    computed once for every schedule that uses it: its kernel in interpret
+    mode, or with a ``scale`` its ``blockwise_attention`` (the kernel takes
+    ``scale`` traced, which its ``pallas_call`` cannot capture)."""
     qn, kn, vn = _qkv(B, Sq, Skv, H, Hkv, Dh, seed=6, Dv=Dv)
+    args = [jnp.asarray(x, dtype=getattr(jnp, dtype)) for x in (qn, kn, vn)]
+    if scale is None:
+        ref = ref_flash(*args, causal=causal, window=window)
+    else:
+        ref = ref_attention.blockwise_attention(*args, causal=causal,
+                                                window=window, scale=scale)
+    return qn, kn, vn, np.array(ref.astype(jnp.float32))
+
+
+def _check_schedule(B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, dtype,
+                    schedule=k8_schedule, scale=None):
+    qn, kn, vn, ref = _schedule_case(B, Sq, Skv, H, Hkv, Dh, Dv, window,
+                                     causal, dtype, scale)
     tdt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(tdt) for x in (qn, kn, vn))
-    got = k8_schedule(q, k, v, causal=causal, window=window)
+    got = schedule(q, k, v, causal=causal, window=window, scale=scale)
     assert got.dtype == tdt and got.shape == (B, Sq, H, Dv)
-    ref = np.array(ref_flash(*(jnp.asarray(x, dtype=getattr(jnp, dtype))
-                                 for x in (qn, kn, vn)),
-                               causal=causal, window=window).astype(jnp.float32))
-    plain = k8.flash_attention_plain(q, k, v, causal=causal,
-                                     window=window).float()
+    plain = k8.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale).float()
     got = got.float()
     if window == 0:
         assert not got.any()
@@ -288,7 +313,7 @@ def _check_schedule(B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, dtype):
         torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)
         return
     vbar = k8.flash_attention_plain(q, k, v.abs(), causal=causal,
-                                    window=window).float()
+                                    window=window, scale=scale).float()
     for want in (torch.from_numpy(ref), plain):
         err = (got - want).abs() / bf16_bound(want, vbar)
         assert float(err.max()) <= 1.0
@@ -301,11 +326,16 @@ def test_kernel_schedule_matches_reference_kernel_and_plain(
     _check_schedule(B, Sq, Skv, H, Hkv, Dh, Dh, window, causal, dtype)
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh,Dv,window,causal", [
+VALUE_WIDTH_SHAPES = [
+    # B, Sq, Skv, H, Hkv, Dh, Dv, window, causal
     (1, 150, 150, 8, 2, 64, 80, 40, True),    # Dv > Dh: the tier is Dv's
     (2, 70, 90, 6, 2, 64, 36, None, False),   # Dv % 8 != 0
     (1, 130, 130, 4, 4, 128, 64, None, True),  # Dv < Dh
-])
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh,Dv,window,causal",
+                         VALUE_WIDTH_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_schedule_with_value_width_matches_reference_and_plain(
         B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, dtype):
@@ -323,3 +353,103 @@ def test_schedule_constants_match_the_kernel_source():
         {t1: k1, t2: k2}.get(t, rest) for t in K8_TIERS]
     tiers = sorted({int(x) for x in re.findall(r"launch_bf16<(\d+)>\(", src)})
     assert tuple(tiers) == K8_TIERS
+
+
+# -- the float32 kernel's schedule, emulated --------------------------------------
+
+# Tiling of csrc/flash_attention_f32.cu's register-tiled kernel, held to the
+# source by test_f32_schedule_constants_match_the_kernel_source.
+K8_F32_TIERS = (16, 80, 128, 256)  # head widths instantiated; others pad up
+K8_F32_KEYS = 32                    # keys a K/V tile, every tier
+K8_F32_ROWS_PER_THREAD = 4
+
+
+def k8_f32_threads(tier: int) -> int:
+    """Threads a block: 128, 256 at width 256."""
+    return 128 if tier <= 128 else 256
+
+
+def k8_f32_lanes(tier: int) -> int:
+    """Lanes that share a folded q row: 4 up to width 80, 8 at 128, 16 at
+    256."""
+    return 4 if tier <= 80 else 8 if tier <= 128 else 16
+
+
+def k8_f32_q_rows(tier: int) -> int:
+    """Folded q rows a block: 128 up to width 80, 64 above."""
+    return (k8_f32_threads(tier) // k8_f32_lanes(tier)
+            * K8_F32_ROWS_PER_THREAD)
+
+
+def k8_f32_schedule(q, k, v, *, causal=True, window=None, scale=None):
+    """The float32 kernel's schedule in torch, for float32 q, k, v on the CPU.
+
+    ``k8_schedule``'s fold, key range, zero fill, edge-only masks and exp
+    form (scores times scale x log2 e before the mask and the max, p =
+    exp2(s - m_safe)), on row tiles of ``k8_f32_q_rows`` and key tiles of
+    ``K8_F32_KEYS``, with no rounding of p.  Returns (B, Sq, H, Dv)
+    float32.
+    """
+    assert q.dtype == k.dtype == v.dtype == torch.float32
+    tier = next(t for t in K8_F32_TIERS if max(q.shape[3], v.shape[3]) <= t)
+    return _tiled_flash(q, k, v, causal=causal, window=window, scale=scale,
+                        q_rows=k8_f32_q_rows(tier), key_tile=K8_F32_KEYS)
+
+
+F32_SCHEDULE_SHAPES = [
+    (B, Sq, Skv, H, Hkv, Dh, Dh, window, causal)
+    for B, Sq, Skv, H, Hkv, Dh, window, causal in SCHEDULE_SHAPES
+] + VALUE_WIDTH_SHAPES + [
+    (1, 60, 60, 32, 1, 16, 16, 20, True),      # g = 32: 4 positions a tile
+    (1, 150, 150, 4, 1, 128, 128, 45, True),   # window off the key grid
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh,Dv,window,causal",
+                         F32_SCHEDULE_SHAPES)
+def test_f32_kernel_schedule_matches_reference_kernel_and_plain(
+        B, Sq, Skv, H, Hkv, Dh, Dv, window, causal):
+    _check_schedule(B, Sq, Skv, H, Hkv, Dh, Dv, window, causal, "float32",
+                    schedule=k8_f32_schedule)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+@pytest.mark.parametrize("dtype,schedule", [("float32", k8_f32_schedule),
+                                            ("bfloat16", k8_schedule)])
+def test_kernel_schedules_take_any_sign_of_scale(scale, dtype, schedule):
+    """Scores are scaled before the mask and the row max, so a negative
+    or zero scale gives the reference's output (the row max of s x c is
+    not (max s) x c there, and a masked -inf times 0 is not -inf); held
+    against the reference's ``blockwise_attention`` and the plain
+    version."""
+    _check_schedule(2, 10, 30, 4, 2, 16, 16, 7, True, dtype,
+                    schedule=schedule, scale=scale)
+
+
+def test_f32_schedule_constants_match_the_kernel_source():
+    src = (build.CSRC / "flash_attention_f32.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    def by_tier(name, pattern):
+        """A Tier member ``kD <= a ? x : ...`` as a function of the tier."""
+        expr = re.search(rf"static constexpr int {name} = ({pattern});",
+                         src).group(1)
+        cuts = [(int(a), int(x)) for a, x in
+                re.findall(r"kD <= (\d+) \? (\d+) :", expr)]
+        last = int(re.search(r": (\d+)$", expr).group(1))
+        return lambda t: next((x for a, x in cuts if t <= a), last)
+
+    assert const("kKeys") == K8_F32_KEYS
+    assert const("kTM") == K8_F32_ROWS_PER_THREAD
+    threads = by_tier("kThreads", r"[^;]+")
+    lanes = by_tier("kRX", r"[^;]+")
+    assert [threads(t) for t in K8_F32_TIERS] == [
+        k8_f32_threads(t) for t in K8_F32_TIERS]
+    assert [lanes(t) for t in K8_F32_TIERS] == [
+        k8_f32_lanes(t) for t in K8_F32_TIERS]
+    assert "kRY = kThreads / kRX;" in src and "kRows = kRY * kTM;" in src
+    assert [k8_f32_q_rows(t) for t in K8_F32_TIERS] == [128, 128, 64, 64]
+    tiers = sorted({int(x) for x in re.findall(r"launch<(\d+)>\(", src)})
+    assert tuple(tiers) == K8_F32_TIERS
