@@ -39,21 +39,25 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   lane map and path reported, K3 and K4 also timed from a CUDA graph.
 * Phase H, the session layer and the read path on phase A's notes: a
   host ``DedupSession`` with phase A's config over 4 chunks (H1: K1 once
-  a chunk, and K2) and with phase A2's (H2: K6, compaction, K1, K2),
-  each holding phase A's (A2's) signatures, partition, keep mask and
-  every shared pair's similarity, and every pair's similarity against
-  K2's plain counts / M; a ``DedupQueryService`` with the ``kernel``
-  backend over each session (H3: every 16th note and 64 novel ones in
-  microbatches of 64, through ``query`` and ``query_bytes``) equal to
-  its ``numpy`` twin, every ingested note answering with similarity 1.0
-  and its own root, and the probe's dict walk timed against a device
+  a chunk, and K2), the same on the cut corpus (``cut_notes``: phase
+  A's first 3,328 notes and near-duplicates of 768 of them; the record
+  of R1, T1 and Q1), and with phase A2's config on the cut corpus (H2: K6,
+  compaction, K1, K2), each holding its one-shot run's signatures,
+  partition, keep mask and every shared pair's similarity, and every
+  pair's similarity against K2's plain counts / M; a
+  ``DedupQueryService`` with the ``kernel`` backend over H1 and H2 (H3:
+  every 16th ingested note and 64 novel ones in microbatches of 64,
+  through ``query`` and ``query_bytes``) equal to its ``numpy`` twin,
+  every ingested note answering with similarity 1.0 and its own root,
+  and the probe's dict walk timed against a device
   searchsorted probe, index build included, on H3's traffic, on every
   ingested note and on the CLI's 65 queries; and the dedup CLI,
   ``python -m repro_torch.launch.dedup``, run as a user runs it (H4).
-* Phase R, bounded retained state on phase H's notes, config and
-  chunks: R1 under an LRU window of 1,024 (labels and (a, b, sim) list
-  equal H1's, rows evicted, retained rows, representatives, no
-  filter-only hits; 64 evicted docs queried through a ``kernel``
+* Phase R, bounded retained state with phase H's config and chunk
+  count: R1 the cut corpus under an LRU window of 256 (labels and (a,
+  b, sim) list equal phase H's record of it, rows evicted, retained
+  rows, representatives, no filter-only hits; up to 64 evicted docs
+  queried through a ``kernel``
   ``DedupQueryService`` answer with their cluster through a retained
   doc); R2 under ``RetentionPolicy.preset("small", refine_every=2)``
   on phase A's first 4,096 notes
@@ -66,28 +70,29 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   keys compacted; R4 the dedup CLI with ``--retain-budget small
   --refine-every 2``.  K1, K2 and K5 launches are counted per run, and
   K5 is timed at the last refine's representative count.
-* Phase T, the streaming backend on phase H's notes and config, each
-  band store a file in a temporary directory: T1 H1's 16,384 notes in
-  4 chunks through ``DedupSession(backend="streaming", chunk_docs=512)``
-  (K1 once a flush, K2), its partition, keep mask and shared sims equal
-  H1's and no pair verified twice, each step split into phase 1, the
-  store re-scan and the engine, with the store's write metrics; T2
+* Phase T, the streaming backend with phase H's config, each band store
+  a file in a temporary directory: T1 the cut corpus in 4 chunks through
+  ``DedupSession(backend="streaming", chunk_docs=512)`` (K1 once a
+  flush, K2), its partition, keep mask and shared sims equal phase H's
+  record of it and no pair verified twice, each step split into phase 1,
+  the store re-scan and the engine, with the store's write metrics; T2
   ``r3_notes`` byte streaming (K6 and K1) equal to a token streaming
   session fed no-stem token lists; T3 ``r3_notes`` under an LRU window
   of 128, equal to the append-only streaming session with a smaller
   store, on the card and on the CPU field by field; T4 a standalone
   ``StreamingDedup`` clustered at edge thresholds 0.75 and 0.6 with no
-  K1 launch, then adopted by ``over_store`` and fed a copy of doc 0;
-  T5 the CLI's ``--streaming`` with H4's duplicate count.
+  K1 launch, then adopted by ``over_store`` and fed a copy of doc 0; T5
+  the CLI's ``--streaming`` with H4's duplicate count.
   ``launches_phase_t`` on the K1, K2 and K6 lines.
 * Phase Q, the sqlite band-store tier, each store a file in a temporary
-  directory: Q1 H1's notes and chunks through a host session with
+  directory: Q1 the cut corpus in 4 chunks through a host session with
   ``store="sqlite"`` (its cross-step index a ``SqliteBandStore``; K1
-  once a chunk, K2), labels and (a, b, sim) list equal to H1's, with
-  each step's cross-step time and edges and the store's counters; Q2
-  H3's queries through a ``kernel`` ``DedupQueryService`` over Q1's
-  view, probed through the store's Bloom-first ``probe_keys``, equal to
-  H3's answers, with the probe's Bloom accounting; Q3 ``r3_notes``
+  once a chunk, K2), labels and (a, b, sim) list equal to phase H's
+  memory-tier record of it, with each step's cross-step time and edges
+  and the store's counters; Q2 H3's queries through a ``kernel``
+  ``DedupQueryService`` over Q1's view, probed through the store's
+  Bloom-first ``probe_keys``, equal to the same service over the
+  memory-tier record, with the probe's Bloom accounting; Q3 ``r3_notes``
   through a sqlite streaming session, append-only and under T3's
   window, verified off disk by ``DiskSignatureVerifier`` (K2', no K2),
   equal to T3's memory-tier sessions, every sim equal to K2's plain
@@ -104,16 +109,25 @@ gathered bytes at HBM's rate as a second floor beside the bound.  Then it runs t
   step's gathered edges (its 5 launches timed per call and from a CUDA
   graph).
 * Phase D, the sharded ``DedupSession`` (``backend="sharded"``) over the
-  same NCCL group: D1 phase A's notes in 4 chunks at full width, K1 and
-  device stage 2 (K7), phase S's buffers, its signatures equal phase A's,
-  nothing overflowed or re-scored on the host, every pair's similarity
-  equal to K2's plain counts / M, its partition and shared sims equal to
-  phase S's one-shot step's, each chunk's step timed alone; D2
+  same NCCL group: D1 phase A's notes in 4 chunks (the third ending
+  1,024 notes into the near-duplicates) at full width, K1 and device
+  stage 2 (K7), phase S's buffers, under an LRU window of 1,024: its
+  signatures and retained rows equal phase A's, nothing overflowed or
+  re-scored on the host, rows evicted, also by the sweeps between band
+  groups, every pair's similarity equal to K2's plain counts / M, its
+  partition and shared sims equal to phase S's one-shot step's, each
+  chunk's step timed alone; D2
   ``r3_notes`` in 3 chunks with host stage 2 on the card and on the CPU
   field by field, byte ingest (K6, K1) against no-stem tokens, device
-  against host stage 2; D3 the CLI's ``--sharded --stage2 device`` on the
-  card against the same command on the CPU.  ``launches_phase_d`` on the
-  K1, K2, K6 and K7 lines.
+  against host stage 2; D4 D2's notes and chunks under the ``small``
+  preset refining every 2 steps, host and device stage 2, the card
+  against the CPU and the sqlite index against the memory one field by
+  field (rows evicted, keys compacted, refine's K5 and K2 launches),
+  and 64 of H3's queries through ``query_view`` over the sqlite view
+  against the memory view; D3 the CLI's ``--sharded --stage2 device
+  --retain-budget small --refine-every 2 --store sqlite`` on the card
+  against the same command on the CPU.  ``launches_phase_d`` on the
+  K1, K2, K5, K6 and K7 lines.
 * Phase B, paper-scale kernels: K1, and K3 -> K4 -> K5, on a 1,048,576 x
   256 token matrix (a tenth of the paper's 10M-note corpus as one ingest
   chunk); K2 on 16,777,216 random pairs through ``SignatureVerifier``;
@@ -237,14 +251,14 @@ def main() -> int:
     k6_line = phase_a2(torch, clock_hz, notes, ctx)
     k3_line, k4_line, k5_line = phase_a3(torch, clock_hz, notes, ctx)
     t0 = time.perf_counter()
-    h_launches = phase_h(torch, notes, ctx)
+    h_launches = phase_h(torch, notes, prov, ctx)
     emit(phase_h={"seconds": time.perf_counter() - t0,
                   "launches": h_launches})
     for line in (k1_line, k2_line, k6_line):
         line["launches_phase_h"] = {path: counts[line["name"]]
                                     for path, counts in h_launches.items()}
-    # Phase R takes H1's record; phases T and Q compare against it too.
-    ctx["t_h1"] = {k: ctx["h1"][k] for k in ("labels", "pairs", "summary")}
+    # Phase R takes H1's record, and R1, T1 and Q1 compare against phase
+    # H's record of the cut notes (``ctx["h1_cut"]``).
     ctx["d_h1_ingest_s"] = ctx["h1"]["summary"]["ingest_s"]
     t0 = time.perf_counter()
     r_launches, k5_refine = phase_r(torch, clock_hz, notes, prov, ctx)
@@ -284,7 +298,7 @@ def main() -> int:
         paper = phase_b(torch, clock_hz, k1_sass)
     finally:
         dist.destroy_process_group()
-    for line in (k1_line, k2_line, k6_line, k7_line):
+    for line in (k1_line, k2_line, k5_line, k6_line, k7_line):
         line["launches_phase_d"] = {path: counts[line["name"]]
                                     for path, counts in d_launches.items()}
     lines = [k1_line, k2_line, k3_line, k4_line, k5_line, k6_line, k7_line]
@@ -1032,7 +1046,6 @@ def phase_a2(torch, clock_hz: float, notes: list[str], ctx: dict) -> dict:
           "byte path labels and keep mask == plain clustering")
     check(acc.pairs == res.pairs, "byte path (a, b, sim) list == plain")
 
-    ctx["byte_res"] = res
     t = res.timings
     stages = {"pack (byte matrix)": t["pack_s"], "upload": t["upload_s"],
               "ingest (K6, compaction, K1)": t["ingest_s"]}
@@ -1227,6 +1240,9 @@ def phase_a3(torch, clock_hz: float, notes: list[str], ctx: dict):
 # -- phase H: the host session, the read path and the dedup CLI ------------------
 
 H_CHUNKS, H_QUERY_STRIDE, H_NOVEL, H_MICROBATCH = 4, 16, 64, 64
+# The cut depth of H2, R1, T1 and Q1 (``cut_notes``): 4,096 notes, a
+# quarter of phase A's, to pay for phase D's retention and sqlite paths.
+CUT_SOURCES, CUT_DUPS = 3328, 768
 
 
 def canonical(labels):
@@ -1289,7 +1305,7 @@ def session_run(torch, cfg, notes, want, device: str, counters: dict, *,
     shared = [(s, sims[(a, b)]) for a, b, s in snap.pairs if (a, b) in sims]
     check(len(shared) > 0 and all(x == y for x, y in shared),
           "sims of pairs both evaluate are equal")
-    check_pair_sims(torch, sess, snap, device, "session")
+    check_pair_sims(torch, sess.signatures, snap, device, "session")
     summary = {
         "chunks": len(chunks), "steps": steps,
         "ingest_s": sum(x["seconds"] for x in steps),
@@ -1302,16 +1318,16 @@ def session_run(torch, cfg, notes, want, device: str, counters: dict, *,
     return sess, snap, summary
 
 
-def check_pair_sims(torch, sess, snap, device: str, what: str) -> None:
+def check_pair_sims(torch, signatures, snap, device: str, what: str) -> None:
     """Every pair of ``snap`` against K2's plain counts / M on the rows of
-    ``sess.signatures`` (row i == doc i: no eviction)."""
+    ``signatures``, a (D, M) uint32 matrix whose row i is doc i."""
     import numpy as np
 
     from repro_torch.kernels import sigjaccard as k2
 
     pairs = np.array([(a, b) for a, b, _ in snap.pairs], dtype=np.int64)
     got = np.array([s for _, _, s in snap.pairs], dtype=np.float32)
-    sig = torch.from_numpy(sess.signatures.view(np.int32)).to(device)
+    sig = torch.from_numpy(signatures.view(np.int32)).to(device)
     M = sig.shape[1]
     for s in range(0, len(pairs), 1 << 20):
         a = torch.from_numpy(pairs[s : s + (1 << 20), 0]).to(device)
@@ -1465,15 +1481,19 @@ def query_bands(sess, texts: list[str]):
     return pipe.compute_arrays(toks, pad_len=pad)[1]
 
 
-def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
+def phase_h(torch, notes: list[str], prov: list, ctx: dict,
+            device: str = "cuda") -> dict:
     """The host ``DedupSession`` over phase A's notes in ``H_CHUNKS``
-    chunks (H1: fused ingest, K1 and K2; H2: byte ingest, K6, compaction,
-    K1 and K2), the read path over those sessions (H3:
-    ``DedupQueryService`` with the ``kernel`` backend against its
-    ``numpy`` twin, ``query`` and ``query_bytes``; the probe's dict walk
-    against a device searchsorted probe), and the dedup CLI (H4).
-    Returns each path's kernel launches."""
-    from repro_torch.core.pipeline import DedupConfig
+    chunks (H1: fused ingest, K1 and K2), and H1's config on
+    ``cut_notes`` (``phase_h1_cut``: the record of R1, T1 and Q1, held
+    against its own one-shot run); H2: byte ingest (K6, compaction, K1
+    and K2) on ``cut_notes``, held against A2's config run one-shot on
+    them; the read path over those sessions (H3: ``DedupQueryService``
+    with the ``kernel`` backend against its ``numpy`` twin, ``query``
+    over H1 and ``query_bytes`` over H2; the probe's dict walk against a
+    device searchsorted probe), and the dedup CLI (H4).  Returns each
+    path's kernel launches."""
+    from repro_torch.core.pipeline import DedupConfig, DedupPipeline
     from repro_torch.data import make_i2b2_like
     from repro_torch.kernels import byte_shingle as k6
     from repro_torch.kernels import fused_ingest as k1
@@ -1501,25 +1521,56 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
           "K1 launched once a chunk in the session")
     check(h1["launches"]["pair_counts"] > 0, "K2 launched in the session")
     emit(phase_h1=h1)
+    del snap
 
-    # H2: phase A2's config, 4 chunks.
+    # H1's config on the cut corpus, against its own one-shot run: the
+    # record of the paths run at the cut depth (R1, T1, Q1).
+    cut = cut_notes(notes, prov)
+    t0 = time.perf_counter()
+    ctx["res_cut"] = DedupPipeline(cfg, device=device).run(cut)
+    one_shot_s = time.perf_counter() - t0
+    cut_sess, cut_snap, h1c = session_run(torch, cfg, cut, ctx["res_cut"],
+                                          device, counters)
+    launches["h1_cut_session"] = h1c["launches"]
+    check(h1c["launches"]["fused_ingest"] == H_CHUNKS
+          and h1c["launches"]["pair_counts"] > 0,
+          "K1 once a chunk, and K2, in the cut-depth session")
+    v = cut_sess.verifier
+    ctx["h1_cut"] = {"labels": cut_snap.labels, "pairs": cut_snap.pairs,
+                     "summary": h1c, "sess": cut_sess,
+                     "n_live_rows": v.n_live_rows,
+                     "device_buffer_rows": len(v._dev),
+                     "device_buffer_bytes": v._dev.numel() * 4}
+    emit(phase_h1_cut={**h1c, "notes": len(cut), "one_shot_s": one_shot_s,
+                       "duplicates": cut_snap.num_duplicates})
+    del cut_snap
+
+    # H2: phase A2's config on the cut corpus, 4 chunks, against the same
+    # config run one-shot on it.
     byte_cfg = DedupConfig(byte_ingest=True, use_kernels=True,
                            exact_verification=False, verify_batch="band")
-    byte_sess, _, h2 = session_run(torch, byte_cfg, notes, ctx["byte_res"],
-                                   device, counters)
+    t0 = time.perf_counter()
+    byte_res = DedupPipeline(byte_cfg, device=device).run(cut)
+    one_shot_s = time.perf_counter() - t0
+    byte_sess, _, h2 = session_run(torch, byte_cfg, cut, byte_res, device,
+                                   counters)
     launches["h2_byte_session"] = h2["launches"]
     check(h2["launches"]["byte_token_hashes"] == H_CHUNKS
           and h2["launches"]["fused_ingest"] == H_CHUNKS
           and h2["launches"]["pair_counts"] > 0,
           "K6 and K1 launched once a chunk, and K2, in the byte session")
-    emit(phase_h2=h2)
+    emit(phase_h2={**h2, "notes": len(cut), "one_shot_s": one_shot_s})
+    del byte_res
 
-    # H3: the read path, kernel backend against its numpy twin.
-    ingested = list(range(0, len(notes), H_QUERY_STRIDE))
-    queries = [notes[i] for i in ingested] + make_i2b2_like(H_NOVEL, seed=7)
-    h3 = {"queries": len(queries), "microbatch": H_MICROBATCH}
-    for name, s, by_bytes in (("query", sess, False),
-                              ("query_bytes", byte_sess, True)):
+    # H3: the read path, kernel backend against its numpy twin: every
+    # 16th note ingested by H1 (``query``) and by H2 (``query_bytes``),
+    # and 64 novel ones.
+    novel = make_i2b2_like(H_NOVEL, seed=7)
+    h3 = {"microbatch": H_MICROBATCH}
+    for name, s, by_bytes, corpus in (("query", sess, False, notes),
+                                      ("query_bytes", byte_sess, True, cut)):
+        ingested = list(range(0, len(corpus), H_QUERY_STRIDE))
+        queries = [corpus[i] for i in ingested] + novel
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         got, timing = serve_queries(
@@ -1544,18 +1595,22 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
                   "query_bytes: K6 once a microbatch")
         launches[f"h3_{name}"] = run_launches
         if not by_bytes:
-            # Phase Q's sqlite read path answers the same queries.
-            ctx["h3"] = {"queries": queries, "results": got,
+            # Phase Q's sqlite read path answers the same queries, and
+            # phase D4 64 of them.
+            ctx["h3"] = {"queries": queries,
                          "median_microbatch_ms":
                              timing["median_microbatch_ms"]}
-        h3[name] = {**timing, "launches": run_launches,
-                    "numpy_twin": twin,
+            ctx["d4_queries"] = queries[:: len(queries) // D4_QUERIES][
+                :D4_QUERIES]
+        h3[name] = {**timing, "queries": len(queries),
+                    "launches": run_launches, "numpy_twin": twin,
                     "duplicates": sum(r.is_duplicate for r in got),
                     "candidates": sum(r.n_candidates for r in got)}
     # The probe: the port's dict walk against the reference's device
     # searchsorted design, index build included, on H3's traffic (in its
     # microbatches and as one batch), on every ingested note at once,
     # and on the CLI's 65 queries against the CLI's session.
+    queries = ctx["h3"]["queries"]
     view, q_bands = sess.view(), query_bands(sess, queries)
     h3["probe"] = {
         "h3_microbatches": probe_crossover(torch, view, q_bands,
@@ -1588,6 +1643,8 @@ def phase_h(torch, notes: list[str], ctx: dict, device: str = "cuda") -> dict:
 
 # -- phase R: bounded retained state and refine ------------------------------------
 
+# R1_WINDOW is R1's LRU window at phase A's depth (D1 runs under it); R1 at
+# the cut depth takes the same share of its notes.
 R1_WINDOW, R_EVICTED_QUERIES, R_FILTER_QUERIES = 1024, 64, 256
 # R2's depth: phase A's first 4,096 notes (cut from all 16,384 to pay
 # for phase D), still twice the small preset's 2,048 keys a band, so keys
@@ -1596,21 +1653,35 @@ R2_NOTES = 4096
 R3_SOURCES, R3_DUPS = 2560, 512
 
 
-def r3_notes(notes: list[str], prov: list) -> list[str]:
-    """R3's corpus: the first ``R3_SOURCES`` notes, then the injected
-    near-duplicates of ``R3_DUPS`` distinct ones among them, in
-    injection order.  More notes than R2's 2,048 keys a band, so keys
-    are compacted; the duplicates land in the last chunk, so unions
-    depose docs, the sweep evicts them and the second refine re-bands
-    the roots."""
+def r3_notes(notes: list[str], prov: list, sources: int | None = None,
+             n_dups: int | None = None) -> list[str]:
+    """R3's corpus: the first ``R3_SOURCES`` notes (or ``sources``), then
+    the injected near-duplicates of ``R3_DUPS`` (or ``n_dups``) distinct
+    ones among them, in injection order.  More notes than R2's 2,048 keys
+    a band, so keys are compacted; the duplicates land in the last chunk,
+    so unions depose docs, the sweep evicts them and the second refine
+    re-bands the roots."""
+    sources = R3_SOURCES if sources is None else sources
+    n_dups = R3_DUPS if n_dups is None else n_dups
     dups, seen = [], set()
     for dup, src, _ in prov:
-        if src < R3_SOURCES and src not in seen:
+        if src < sources and src not in seen:
             seen.add(src)
             dups.append(dup)
-    check(len(dups) >= R3_DUPS,
-          f"R3 found {len(dups)} near-duplicates of its sources")
-    return notes[:R3_SOURCES] + [notes[d] for d in dups[:R3_DUPS]]
+    check(len(dups) >= n_dups,
+          f"found {len(dups)} near-duplicates of the first {sources} notes")
+    return notes[:sources] + [notes[d] for d in dups[:n_dups]]
+
+
+def cut_notes(notes: list[str], prov: list) -> list[str]:
+    """The corpus of the session paths run at the cut depth (H2, R1, T1
+    and Q1): phase A's first ``CUT_SOURCES`` notes, then the
+    near-duplicates of ``CUT_DUPS`` distinct ones among them, 4,096 notes,
+    a quarter of phase A's.  In ``H_CHUNKS`` chunks the near-duplicates
+    fill the last chunk, as phase A's fill its last, and most of them
+    are of notes in earlier chunks.  (A prefix of H1's chunks would hold
+    none.)"""
+    return r3_notes(notes, prov, CUT_SOURCES, CUT_DUPS)
 
 
 def retention_run(torch, cfg, notes, policy, device: str, counters: dict,
@@ -1728,11 +1799,13 @@ def traced_refine(torch, sess, record: list) -> None:
 def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
             ctx: dict, device: str = "cuda") -> tuple[dict, dict]:
     """Bounded retained state and the second clustering round on phase A's
-    notes and config, H1's 4 chunks.  R1: an LRU window of 1,024, lossless
-    (labels and pairs equal H1's), then 64 evicted docs queried through a
-    ``kernel`` ``DedupQueryService``.  R2: the ``small`` preset refining
-    every 2 steps (K5 once a refine, each round checked by
-    ``traced_refine``), and a query batch that finds compacted keys.  R3:
+    notes and config, in H1's 4 chunks.  R1: ``cut_notes`` under an LRU
+    window of 256 (1,024 at phase A's depth), lossless (labels and pairs
+    equal phase H's record of the same notes and chunks), then up to 64
+    evicted docs queried through a ``kernel`` ``DedupQueryService``.
+    R2: the ``small`` preset refining every 2 steps (K5 once a refine,
+    each round checked by ``traced_refine``), and a query batch that
+    finds compacted keys.  R3:
     ``r3_notes`` (2,560 notes and 512 of their near-duplicates, ``prov``
     the corpus's provenance) under R2's policy, on the card and on the
     CPU, equal field by field, with rows evicted and keys compacted.  R4: the CLI with ``--retain-budget small
@@ -1755,15 +1828,20 @@ def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
                       exact_verification=False, verify_backend="kernel",
                       verify_batch="band")
     h1 = ctx.pop("h1")
+    h1_cut = ctx["h1_cut"]
+    cut = cut_notes(notes, prov)
 
-    # R1: lossless eviction against H1.
-    sess, snap, r1 = retention_run(torch, cfg, notes,
-                                   RetentionPolicy(lru_window=R1_WINDOW),
+    # R1: lossless eviction against H1's config on the same notes, under
+    # R1's window cut as the notes are.
+    window = R1_WINDOW * len(cut) // len(notes)
+    sess, snap, r1 = retention_run(torch, cfg, cut,
+                                   RetentionPolicy(lru_window=window),
                                    device, counters)
     launches["r1_session"] = r1["launches"]
-    check(np.array_equal(snap.labels, h1["labels"]),
-          "R1 labels == H1 labels")
-    check(snap.pairs == h1["pairs"], "R1 (a, b, sim) list == H1's")
+    check(np.array_equal(snap.labels, h1_cut["labels"]),
+          "R1 labels == H1's config on the cut notes")
+    check(snap.pairs == h1_cut["pairs"],
+          "R1 (a, b, sim) list == H1's config on the cut notes")
     check(snap.evicted > 0, "R1 evicted rows")
     check(snap.retained_rows == snap.n_docs - snap.evicted,
           "R1 retained rows == docs - evicted")
@@ -1780,7 +1858,7 @@ def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
     picks = picks[:R_EVICTED_QUERIES]
     t0 = time.perf_counter()
     got = DedupQueryService(sess, backend="kernel").query(
-        [notes[d] for d in picks])
+        [cut[d] for d in picks])
     if device == "cuda":
         torch.cuda.synchronize()
     query_s = time.perf_counter() - t0
@@ -1788,13 +1866,15 @@ def phase_r(torch, clock_hz: float, notes: list[str], prov: list,
               and r.matched_doc in view.slot_of
               for d, r in zip(picks, got)),
           "R1: evicted docs query to their cluster through a retained doc")
-    r1.update(evicted_queries=len(picks), evicted_query_s=query_s,
-              h1={k: h1[k] for k in ("n_live_rows", "device_buffer_rows",
-                                      "device_buffer_bytes")},
+    r1.update(notes=len(cut), lru_window=window, evicted_queries=len(picks),
+              evicted_query_s=query_s,
+              h1={k: h1_cut[k] for k in ("n_live_rows", "device_buffer_rows",
+                                          "device_buffer_bytes")},
               h1_steps=[{k: x[k] for k in ("seconds", "cross_step_edges",
                                            "cross_step_s")}
-                        for x in h1["summary"]["steps"]],
-              h1_ingest_s=h1["summary"]["ingest_s"])
+                        for x in h1_cut["summary"]["steps"]],
+              h1_ingest_s=h1_cut["summary"]["ingest_s"],
+              h1_full_ingest_s=h1["summary"]["ingest_s"])
     emit(phase_r1=r1)
     del sess, snap, view, h1
 
@@ -1951,9 +2031,10 @@ def keep_mask(labels):
 def phase_t(torch, notes: list[str], prov: list, ctx: dict,
             device: str = "cuda") -> dict:
     """The streaming backend on phase A's notes and H1's config, its band
-    store a file in a temporary directory.  T1: H1's 16,384 notes in
+    store a file in a temporary directory.  T1: ``cut_notes`` in
     ``H_CHUNKS`` chunks, flushed every ``T_CHUNK_DOCS`` notes (K1 once a
-    flush, K2), against H1 and the one-shot run.  T2: ``r3_notes`` byte
+    flush, K2), against phase H's host session and one-shot run of the
+    same notes.  T2: ``r3_notes`` byte
     streaming (K6 and K1) against a token streaming session fed no-stem
     token lists.  T3: ``r3_notes`` under an LRU window of ``T3_WINDOW``
     against the append-only streaming session, on the card and on the
@@ -1983,9 +2064,10 @@ def phase_t(torch, notes: list[str], prov: list, ctx: dict,
     cfg = DedupConfig(fused_ingest=True, use_kernels=True,
                       exact_verification=False, verify_backend="kernel",
                       verify_batch="band")
-    h1, one = ctx["t_h1"], ctx["res"]
-    size = -(-len(notes) // H_CHUNKS)
-    chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
+    h1, one = ctx["h1_cut"], ctx["res_cut"]
+    cut = cut_notes(notes, prov)
+    size = -(-len(cut) // H_CHUNKS)
+    chunks = [cut[i : i + size] for i in range(0, len(cut), size)]
     notes3 = r3_notes(notes, prov)
     size3 = -(-len(notes3) // H_CHUNKS)
     chunks3 = [notes3[i : i + size3] for i in range(0, len(notes3), size3)]
@@ -1993,7 +2075,7 @@ def phase_t(torch, notes: list[str], prov: list, ctx: dict,
     flushes3 = sum(-(-len(c) // T_CHUNK_DOCS) for c in chunks3)
 
     with tempfile.TemporaryDirectory() as tmp:
-        # T1: the streaming session at the main path's size.
+        # T1: the streaming session on the cut corpus.
         sess, snap, t1 = streaming_run(torch, cfg, chunks, device, counters,
                                        store_path=os.path.join(tmp, "t1.db"))
         launches["t1_session"] = t1["launches"]
@@ -2020,13 +2102,13 @@ def phase_t(torch, notes: list[str], prov: list, ctx: dict,
               "T1 verified pairs and sims == the one-shot's")
         check(np.array_equal(sess.signatures, one.signatures),
               "T1 session signatures == one-shot signatures")
-        check_pair_sims(torch, sess, snap, device, "T1")
+        check_pair_sims(torch, sess.signatures, snap, device, "T1")
         check(len(sess._impl.sd._sig_cache) == 0,
               "T1: the phase-1 host cache stays empty")
         check(t1["launches"]["fused_ingest"] == flushes
               and t1["launches"]["pair_counts"] > 0,
               "T1: K1 once a flush, and K2")
-        t1.update(notes=len(notes), chunk_docs=T_CHUNK_DOCS, flushes=flushes,
+        t1.update(notes=len(cut), chunk_docs=T_CHUNK_DOCS, flushes=flushes,
                   shared_pairs=len(shared),
                   one_shot_pairs_evaluated=one.stats.pairs_evaluated,
                   h1_ingest_s=h1["summary"]["ingest_s"])
@@ -2174,13 +2256,14 @@ def phase_t(torch, notes: list[str], prov: list, ctx: dict,
 
 def phase_q(torch, clock_hz: float, notes: list[str], prov: list, ctx: dict,
             device: str = "cuda") -> tuple[dict, dict]:
-    """The sqlite tier, each store a file in a temporary directory.  Q1: a
-    host session with H1's config and ``store="sqlite"`` over H1's notes
-    and chunks (K1 once a chunk, K2), its cross-step index on disk,
-    equal to H1 in labels and (a, b, sim) list.  Q2: H3's queries
-    through a ``kernel`` ``DedupQueryService`` over Q1's view, whose
-    probe is the store's Bloom-first ``probe_keys``, equal to H3's
-    answers over H1's session.  Q3: ``r3_notes`` through a sqlite
+    """The sqlite tier, each store a file in a temporary directory.  Q1: a host
+    session with H1's config and ``store="sqlite"`` over ``cut_notes``
+    in H1's chunk count (K1 once a chunk, K2), its cross-step index on
+    disk, equal in labels and (a, b, sim) list to phase H's memory-tier
+    session of the same notes.  Q2: H3's queries through a ``kernel``
+    ``DedupQueryService`` over Q1's view, whose probe is the store's
+    Bloom-first ``probe_keys``, equal to the same service's answers over
+    that memory-tier session.  Q3: ``r3_notes`` through a sqlite
     streaming session, append-only and under T3's window, verified off
     disk by ``DiskSignatureVerifier`` (K2', no K2), equal to T3's
     memory-tier sessions; every sim equals K2's plain counts / M on the
@@ -2213,15 +2296,18 @@ def phase_q(torch, clock_hz: float, notes: list[str], prov: list, ctx: dict,
     cfg = DedupConfig(fused_ingest=True, use_kernels=True,
                       exact_verification=False, verify_backend="kernel",
                       verify_batch="band", store="sqlite")
-    h1, h3, t3 = ctx.pop("t_h1"), ctx.pop("h3"), ctx.pop("t3")
+    h1, h3, t3 = ctx.pop("h1_cut"), ctx.pop("h3"), ctx.pop("t3")
+    res_cut = ctx.pop("res_cut")
+    cut = cut_notes(notes, prov)
     notes3 = r3_notes(notes, prov)
     size3 = -(-len(notes3) // H_CHUNKS)
     chunks3 = [notes3[i : i + size3] for i in range(0, len(notes3), size3)]
     flushes3 = sum(-(-len(c) // T_CHUNK_DOCS) for c in chunks3)
 
     with tempfile.TemporaryDirectory() as tmp:
-        # Q1: H1 with its cross-step index on disk.
-        sess, snap, q1 = session_run(torch, cfg, notes, ctx["res"], device,
+        # Q1: phase H's cut-depth session with its cross-step index on
+        # disk.
+        sess, snap, q1 = session_run(torch, cfg, cut, res_cut, device,
                                      counters,
                                      store_path=os.path.join(tmp, "q1.db"))
         launches["q1_session"] = q1["launches"]
@@ -2229,18 +2315,24 @@ def phase_q(torch, clock_hz: float, notes: list[str], prov: list, ctx: dict,
         check(isinstance(index, SqliteBandStore),
               "Q1: the cross-step index is a SqliteBandStore")
         check(np.array_equal(snap.labels, h1["labels"]),
-              "Q1 labels == H1's, id for id")
-        check(snap.pairs == h1["pairs"], "Q1 (a, b, sim) list == H1's")
+              "Q1 labels == the memory tier's, id for id")
+        check(snap.pairs == h1["pairs"],
+              "Q1 (a, b, sim) list == the memory tier's")
         check(q1["launches"]["fused_ingest"] == H_CHUNKS
               and q1["launches"]["pair_counts"] > 0,
               "Q1: K1 once a chunk, and K2")
-        q1.update(notes=len(notes), store={
+        q1.update(notes=len(cut), store={
             "stats": index.stats(), "n_writes": index.n_writes,
             "write_bytes": index.write_bytes},
             h1_ingest_s=h1["summary"]["ingest_s"])
         emit(phase_q1=q1)
 
-        # Q2: H3's queries through the store's Bloom-first probe.
+        # Q2: H3's queries through the store's Bloom-first probe, against
+        # the memory tier's dict walk over the same notes.
+        want, _ = serve_queries(
+            torch, DedupQueryService(h1.pop("sess"), backend="kernel",
+                                     max_batch=H_MICROBATCH),
+            h3["queries"], device)
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         svc = DedupQueryService(sess, backend="kernel",
@@ -2251,7 +2343,7 @@ def phase_q(torch, clock_hz: float, notes: list[str], prov: list, ctx: dict,
         view = sess.view()
         check(view.band_store is index and view.band_maps == (),
               "Q2: the view probes the live store")
-        check(got == h3["results"], "Q2 answers == H3's over H1's session")
+        check(got == want, "Q2 answers == the memory tier's")
         check(run_launches["fused_ingest"] == timing["microbatches"]
               and run_launches["pair_counts"] > 0,
               "Q2: K1 once a microbatch, and K2, on the read path")
@@ -2263,11 +2355,12 @@ def phase_q(torch, clock_hz: float, notes: list[str], prov: list, ctx: dict,
             probe.append(time.perf_counter() - t0)
         emit(phase_q2={**timing, "queries": len(h3["queries"]),
                        "launches": run_launches,
+                       "duplicates": sum(r.is_duplicate for r in got),
                        "h3_median_microbatch_ms": h3["median_microbatch_ms"],
                        "probe_stats": index.probe_stats(q_bands),
                        "probe_median_microbatch_ms":
                            float(np.median(probe)) * 1e3})
-        del sess, snap, svc, view, got, index, h1, h3
+        del sess, snap, svc, view, got, want, index, h1, h3, res_cut
 
         # Q3: streaming over a sqlite store, append-only and windowed.
         out = {}
@@ -2593,6 +2686,14 @@ def phase_s2(torch, clock_hz, g, tokens, lengths, seeds, sig) -> dict:
 # -- phase D: the sharded session -------------------------------------------------
 
 D_CHUNKS, D2_CHUNKS = 4, 3
+# D1's chunk ends in phase A's notes: the third chunk ends ``R1_WINDOW``
+# notes into the near-duplicates (which start at ``PHASE_A_NOTES``), so
+# their unions depose docs among its last ``R1_WINDOW`` ids, and the
+# sweeps between the fourth chunk's band groups are what evict them.  In
+# four equal chunks every near-duplicate sits in the last one, and no
+# sweep inside a step finds anything to evict.
+D1_ENDS = (4096, 8192, PHASE_A_NOTES + R1_WINDOW, PHASE_A_NOTES + PHASE_A_DUPS)
+D4_QUERIES = 64
 D_COUNTERS = ("overflow", "retried", "device_scored", "host_rescored",
               "row_overflow")
 STATS_FIELDS = ("pairs_generated", "pairs_evaluated", "pairs_excluded",
@@ -2601,23 +2702,30 @@ STATS_FIELDS = ("pairs_generated", "pairs_evaluated", "pairs_excluded",
 
 
 def sharded_run(torch, cfg, dcfg, chunks, device: str, counters: dict, *,
-                mesh=None, tokenized: bool = False, step_times=None) -> tuple:
+                mesh=None, tokenized: bool = False, step_times=None,
+                retention=None, store_path: str = ":memory:",
+                wrap=None) -> tuple:
     """One sharded ``DedupSession`` over ``chunks`` (``ingest_stream``),
-    each step timed on the host clock after a synchronize and split by
-    the session's ``stage_timings``.  ``counters`` maps names to (kernel
-    module, counter); they are set to 0 before the run and returned after
-    it.  With ``step_times`` (a list) each chunk's sharded step is timed
-    alone, between two synchronizes, into it."""
+    under ``retention`` and with its cross-step index at ``store_path``
+    (sqlite configs), each step timed on the host clock after a
+    synchronize and split by the session's ``stage_timings``.
+    ``counters`` maps names to (kernel module, counter); they are set to
+    0 before the run and returned after it.  With ``step_times`` (a list)
+    each chunk's sharded step is timed alone, between two synchronizes,
+    into it.  ``wrap(sess)``, if given, is called on the new session
+    before the run, for a caller's own probes."""
     from repro_torch.core.session import DedupSession
 
     sess = DedupSession(cfg, backend="sharded", dist_config=dcfg, mesh=mesh,
+                        retention=retention, store_path=store_path,
                         device=device)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
     if step_times is not None:
         inner = sess._impl._run_step
-
-        def sync():
-            if device == "cuda":
-                torch.cuda.synchronize()
 
         def timed_step(*args):
             sync()
@@ -2628,19 +2736,22 @@ def sharded_run(torch, cfg, dcfg, chunks, device: str, counters: dict, *,
             return out
 
         sess._impl._run_step = timed_step
+    if wrap is not None:
+        wrap(sess)
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     steps = []
     t0 = time.perf_counter()
     for snap in sess.ingest_stream(chunks, tokenized=tokenized):
-        if device == "cuda":
-            torch.cuda.synchronize()
+        sync()
         now = time.perf_counter()
         t = sess.stage_timings
         steps.append({"seconds": now - t0, "merge_s": t["merge_s"],
                       "feed_s": t["feed_s"], "cross_step_s": t["cross_step_s"],
                       "cross_step_edges": t["cross_step_edges"],
                       "pairs_evaluated": snap.stats.pairs_evaluated})
+        if retention is not None:
+            steps[-1].update(sweep_s=t["sweep_s"], evicted=snap.evicted)
         t0 = now
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in counters.items()}
@@ -2653,6 +2764,12 @@ def sharded_run(torch, cfg, dcfg, chunks, device: str, counters: dict, *,
                "verify_batches": snap.stats.verify_batches,
                "launches": launches,
                **{f: getattr(snap, f) for f in D_COUNTERS}}
+    if retention is not None:
+        summary.update(evicted=snap.evicted,
+                       retained_rows=snap.retained_rows,
+                       refine_merges=snap.refine_merges,
+                       filter_only_hits=snap.filter_only_hits,
+                       band_index=sess.band_index.stats())
     return sess, snap, summary
 
 
@@ -2664,40 +2781,144 @@ def session_record(snap) -> dict:
             **{f: getattr(snap, f) for f in D_COUNTERS}}
 
 
+def retention_record(sess, snap) -> dict:
+    """``session_record`` and the retained state: rows evicted and kept,
+    the roots, second-round merges, and the index's compaction."""
+    return {**session_record(snap), "evicted": snap.evicted,
+            "retained_rows": snap.retained_rows,
+            "representatives": snap.representatives.tolist(),
+            "refine_merges": snap.refine_merges,
+            "filter_only_hits": snap.filter_only_hits,
+            "compacted_keys": sess.band_index.compacted_keys}
+
+
+def d4_run(torch, stage2: str, chunks, device: str, counters: dict, *,
+           mesh=None, store_path: str | None = None) -> tuple:
+    """One D4 session: D2's chunks through a sharded session with stage 2
+    on ``stage2``, fused ingest and K5 in refine, under the ``small``
+    preset refining every 2 steps, its cross-step index in sqlite at
+    ``store_path`` (else in memory).  Returns the session, its
+    ``retention_record``, ``sharded_run``'s summary and each refine's
+    launches."""
+    from repro_torch.core import dist_lsh
+    from repro_torch.core.pipeline import DedupConfig
+    from repro_torch.core.retention import RetentionPolicy
+    from repro_torch.kernels import bandfold as k5
+    from repro_torch.kernels import sigjaccard as k2
+
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel",
+                      verify_batch="band",
+                      store="memory" if store_path is None else "sqlite")
+    dcfg = dist_lsh.DistLSHConfig(fused_ingest=True, band_groups=5,
+                                  stage2=stage2,
+                                  edge_capacity=len(chunks[0]) * 10)
+    refines: list = []
+
+    def count_refines(sess):
+        """Each refine appends its K2 and K5 launches and timings."""
+        refine = sess.refine
+
+        def counted_refine():
+            k2_0, k5_0 = k2.launches, k5.launches
+            snap = refine()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t = sess.stage_timings
+            refines.append({"pair_counts": k2.launches - k2_0,
+                            "band_values": k5.launches - k5_0,
+                            **{k: t[k] for k in ("refine_s", "refine_band_s",
+                                                 "refine_pairs",
+                                                 "refine_merges")}})
+            return snap
+
+        sess.refine = counted_refine
+
+    sess, snap, summary = sharded_run(
+        torch, cfg, dcfg, chunks, device, counters, mesh=mesh,
+        retention=RetentionPolicy.preset("small", refine_every=2),
+        store_path=store_path or ":memory:", wrap=count_refines)
+    return sess, retention_record(sess, snap), summary, refines
+
+
+def d4_cpu_twins(chunks_path: str, out_path: str) -> None:
+    """D4's two CPU sessions (stage 2 on the host, on the device) over the
+    chunks in the JSON file ``chunks_path``, on a mesh of one shard
+    without a group; their records, summaries and refines go to
+    ``out_path`` (a pickle).  Phase D runs this in a subprocess beside
+    its card sessions."""
+    import pickle
+
+    import torch
+
+    from repro_torch.core import dist_lsh
+
+    torch.set_num_threads(2)
+    with open(chunks_path) as f:
+        chunks = json.load(f)
+    mesh = dist_lsh.DocsMesh(group=None, rank=0, n_dev=1,
+                             device=torch.device("cpu"))
+    out = {}
+    for stage2 in ("host", "device"):
+        out[stage2] = d4_run(torch, stage2, chunks, "cpu", {}, mesh=mesh)[1:]
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
 def phase_d(torch, notes: list[str], prov: list, ctx: dict,
             device: str = "cuda") -> dict:
     """The sharded ``DedupSession`` (``backend="sharded"``) over the
-    one-rank NCCL group.  D1: phase A's notes in ``D_CHUNKS`` chunks at
-    full width (M 100, r 2, n 8) with K1 and device stage 2 (K7), phase
-    S's buffers, held against phase A's signatures and phase S's one-shot
-    step, every pair's sim against K2's plain counts / M.  D2:
-    ``r3_notes`` in ``D2_CHUNKS`` chunks with host stage 2, on the card
-    and on the CPU (a mesh of one shard without a group) field by field;
-    byte ingest (K6 -> K1) against no-stem tokens; device stage 2 against
-    host stage 2.  D3: the CLI's ``--sharded --stage2 device`` on the
-    card against the same command with ``--device cpu``.  Returns each
-    path's K1, K2, K6 and K7 launches."""
+    one-rank NCCL group.  D1: phase A's notes in ``D_CHUNKS`` chunks
+    (``D1_ENDS``) at full width (M 100, r 2, n 8) with K1 and device stage 2
+    (K7), phase S's buffers, under an LRU window of ``R1_WINDOW``,
+    held against phase A's signatures and phase S's one-shot step, every
+    pair's sim against K2's plain counts / M; rows are evicted, also by
+    the sweeps between band groups.  D2: ``r3_notes`` in ``D2_CHUNKS``
+    chunks with host stage 2, on the card and on the CPU (a mesh of one
+    shard without a group) field by field; byte ingest (K6 -> K1)
+    against no-stem tokens; device stage 2 against host stage 2.  D4:
+    D2's notes and chunks under the ``small`` preset refining every 2
+    steps, host and device stage 2: the card against the CPU, and the
+    sqlite index against the memory one, field by field, and 64 of H3's
+    queries through ``query_view`` over both views.  D3: the CLI's
+    ``--sharded --stage2 device`` with ``--retain-budget small
+    --refine-every 2 --store sqlite`` on the card against the same
+    command with ``--device cpu``.  Returns each path's K1, K2, K5, K6
+    and K7 launches."""
+    import pickle
+    import tempfile
+    from dataclasses import replace
+
     import numpy as np
 
     from repro_torch.core import dist_lsh, shingle
-    from repro_torch.core.pipeline import DedupConfig
+    from repro_torch.core.bandstore import SqliteBandStore
+    from repro_torch.core.hashing import u32_to_numpy
+    from repro_torch.core.pipeline import DedupConfig, DedupPipeline
+    from repro_torch.core.query import query_view
+    from repro_torch.core.retention import RetentionPolicy
+    from repro_torch.kernels import bandfold as k5
     from repro_torch.kernels import byte_shingle as k6
     from repro_torch.kernels import fused_ingest as k1
     from repro_torch.kernels import sigjaccard as k2
 
     counters = {"fused_ingest": (k1, "launches"),
                 "pair_counts": (k2, "launches"),
+                "band_values": (k5, "launches"),
                 "byte_token_hashes": (k6, "launches"),
                 "masked_indexed_pair_counts": (k2, "masked_launches")}
     launches = {}
-    cli = [sys.executable, "-m", "repro_torch.launch.dedup", "--sharded",
-           "--stage2", "device", "--fused-ingest", "--steps", "4",
-           "--device"]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "2"}
     procs = {}
+    tmp = tempfile.TemporaryDirectory()
+    cli = [sys.executable, "-m", "repro_torch.launch.dedup", "--sharded",
+           "--stage2", "device", "--fused-ingest", "--steps", "4",
+           "--retain-budget", "small", "--refine-every", "2", "--store",
+           "sqlite"]
     try:
-        # D1: phase A's notes, phase S's buffers, 4 chunks.
+        # D1: phase A's notes, phase S's buffers, 4 chunks, under R1's
+        # window.
         one = ctx.pop("s_one_shot")
         cfg = DedupConfig(fused_ingest=True, exact_verification=False,
                           verify_backend="kernel", verify_batch="band")
@@ -2705,20 +2926,54 @@ def phase_d(torch, notes: list[str], prov: list, ctx: dict,
             fused_ingest=True, band_groups=5, stage2="device",
             bucket_slack=one["config"]["bucket_slack"],
             edge_capacity=one["config"]["edge_capacity"])
-        size = -(-len(notes) // D_CHUNKS)
-        chunks = [notes[i : i + size] for i in range(0, len(notes), size)]
-        step_s: list = []
-        sess, snap, d1 = sharded_run(torch, cfg, dcfg, chunks, device,
-                                     counters, step_times=step_s)
+        check(len(D1_ENDS) == D_CHUNKS and D1_ENDS[-1] == len(notes),
+              "D1's chunks cover phase A's notes")
+        chunks = [notes[a:b] for a, b in zip((0,) + D1_ENDS[:-1], D1_ENDS)]
+        step_s, sig_rows, in_step = [], [], []
+
+        def probe_d1(sess):
+            """Each chunk's retained signature rows go to ``sig_rows`` on
+            the host; each sweep between band groups appends its
+            evictions to ``in_step``."""
+            retain, sweep = sess._retain, sess.retention.sweep
+
+            def kept_retain(toks, sig):
+                sig_rows.append(u32_to_numpy(sig))
+                retain(toks, sig)
+
+            def counted_sweep(s, protect_from=None):
+                n = sweep(s, protect_from=protect_from)
+                if protect_from is not None:
+                    in_step.append(n)
+                return n
+
+            sess._retain = kept_retain
+            sess.retention.sweep = counted_sweep
+
+        sess, snap, d1 = sharded_run(
+            torch, cfg, dcfg, chunks, device, counters, step_times=step_s,
+            retention=RetentionPolicy(lru_window=R1_WINDOW), wrap=probe_d1)
         launches["d1_session"] = d1["launches"]
-        check(snap.n_docs == len(notes), "D1 covers every note")
-        check(np.array_equal(sess.signatures, ctx["res"].signatures),
+        n = len(notes)
+        want_sig = ctx["res"].signatures
+        v = sess.verifier
+        check(snap.n_docs == n, "D1 covers every note")
+        check(np.array_equal(np.concatenate(sig_rows), want_sig),
               "D1 signatures == phase A's")
+        live = (np.array(sorted(v._slots.slot_of), dtype=np.int64)
+                if v._slots is not None else np.arange(n))
+        check(np.array_equal(v.rows_for(live), want_sig[live]),
+              "D1 retained rows == phase A's rows of those docs")
         check(snap.overflow == snap.retried == snap.row_overflow == 0,
               "D1: nothing overflowed, no retry")
         check(snap.device_scored > 0 and snap.host_rescored == 0,
               "D1: device-scored edges, no host re-score")
-        check_pair_sims(torch, sess, snap, device, "D1")
+        check(snap.evicted > 0, "D1 evicted rows")
+        check(sum(in_step) > 0, "D1: the sweeps between band groups evicted "
+              "rows")
+        check(snap.retained_rows == v.n_live_rows == n - snap.evicted < n,
+              "D1 retained rows == docs - evicted < docs")
+        check_pair_sims(torch, want_sig, snap, device, "D1")
         check(d1["launches"]["fused_ingest"] == D_CHUNKS,
               "D1: K1 once a chunk")
         check(d1["launches"]["masked_indexed_pair_counts"]
@@ -2729,26 +2984,46 @@ def phase_d(torch, notes: list[str], prov: list, ctx: dict,
         d1.update(step_s=step_s, config={
             "band_groups": dcfg.band_groups, "stage2": dcfg.stage2,
             "bucket_slack": dcfg.bucket_slack,
-            "edge_capacity": dcfg.edge_capacity},
+            "edge_capacity": dcfg.edge_capacity,
+            "lru_window": R1_WINDOW, "chunk_ends": list(D1_ENDS)},
+            evicted_in_step=sum(in_step), sweeps_in_step=len(in_step),
+            n_live_rows=v.n_live_rows, append_only_rows=n,
+            device_buffer_rows=len(v._dev),
+            device_buffer_bytes=v._dev.numel() * 4,
             one_shot_pairs_evaluated=len(one["pairs"]),
             cross_step_s=[x["cross_step_s"] for x in d1["steps"]],
             h1_ingest_s=ctx.pop("d_h1_ingest_s"))
         emit(phase_d1=d1)
-        del sess, snap, one
-
-        # D3's two CLI runs (the card's, the CPU's) go beside D2, which
-        # leaves the card and most host cores idle; D1 runs alone.
-        t_cli = time.perf_counter()
-        for name, dev in (("card", device), ("cpu", "cpu")):
-            procs[name] = subprocess.Popen(
-                cli + [dev], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)
+        del sess, snap, one, v, sig_rows, want_sig
 
         # D2: r3_notes in 3 chunks.
         notes3 = r3_notes(notes, prov)
         size = len(notes3) // D2_CHUNKS
         check(size * D2_CHUNKS == len(notes3), "D2 chunks are equal")
         chunks = [notes3[i : i + size] for i in range(0, len(notes3), size)]
+
+        # D3's two CLI runs (the card's, the CPU's), each over its own
+        # sqlite file, and D4's CPU sessions go beside D2 and D4's card
+        # sessions, which leave the card and most host cores idle; D1
+        # runs alone.
+        t_cli = time.perf_counter()
+        for name, dev in (("card", device), ("cpu", "cpu")):
+            procs[name] = subprocess.Popen(
+                cli + ["--store-path", os.path.join(tmp.name, f"d3_{name}.db"),
+                       "--device", dev],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        twin_in = os.path.join(tmp.name, "d4_chunks.json")
+        twin_out = os.path.join(tmp.name, "d4_cpu.pkl")
+        with open(twin_in, "w") as f:
+            json.dump(chunks, f)
+        procs["d4_cpu"] = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; sys.path[:0] = [sys.argv[1]]; import chip_smoke; "
+             "chip_smoke.d4_cpu_twins(sys.argv[2], sys.argv[3])",
+             str(ROOT), twin_in, twin_out],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
         host_cfg = dist_lsh.DistLSHConfig(fused_ingest=True, band_groups=5,
                                           edge_capacity=size * 10)
         runs, d2 = {}, {"notes": len(notes3), "chunks": D2_CHUNKS}
@@ -2800,9 +3075,104 @@ def phase_d(torch, notes: list[str], prov: list, ctx: dict,
         d2["duplicates"] = runs["host"]["n_docs"] - len(
             set(runs["host"]["labels"]))
         emit(phase_d2=d2)
+        del runs
+
+        # D4: D2's notes and chunks under the small preset, refining every
+        # 2 steps: the card's memory and sqlite sessions, then the CPU's
+        # (run beside them) against the card's memory session.
+        policy = RetentionPolicy.preset("small", refine_every=2)
+        d4 = {"notes": len(notes3), "chunks": D2_CHUNKS,
+              "lru_window": policy.lru_window,
+              "band_key_budget": policy.band_key_budget,
+              "refine_every": policy.refine_every}
+        recs, views = {}, {}
+        t_d4 = time.perf_counter()
+        for stage2 in ("host", "device"):
+            for name, path in (("card", None), ("sqlite", os.path.join(
+                    tmp.name, f"d4_{stage2}.db"))):
+                s4, rec, summary, refines = d4_run(
+                    torch, stage2, chunks, device, counters, store_path=path)
+                recs[stage2, name] = rec
+                path_name = f"d4_{stage2}_{name}"
+                launches[path_name] = got = summary["launches"]
+                check(isinstance(s4.band_index, SqliteBandStore)
+                      == (name == "sqlite"),
+                      f"D4 {stage2} {name}: the cross-step index's tier")
+                check(len(refines) == 1 and s4.refines_run == 1,
+                      f"D4 {stage2} {name}: refined once")
+                check(got["fused_ingest"] == D2_CHUNKS
+                      and got["pair_counts"] > 0
+                      and refines[0]["band_values"] == 1
+                      and got["band_values"] == 1,
+                      f"D4 {stage2} {name}: K1 once a chunk, K2, and K5 "
+                      "once a refine")
+                if stage2 == "device":
+                    check(got["masked_indexed_pair_counts"]
+                          >= D2_CHUNKS * 5,
+                          f"D4 device {name}: K7 once a band group a chunk")
+                    views[name] = s4.view()
+                d4[path_name] = {**{k: summary[k] for k in (
+                    "ingest_s", "notes_per_s", "pairs_evaluated",
+                    "launches", "evicted", "retained_rows", "refine_merges",
+                    "filter_only_hits", "band_index", *D_COUNTERS)},
+                    "refines": refines}
+                del s4
+        d4["card_s"] = time.perf_counter() - t_d4
+        t0 = time.perf_counter()
+        proc = procs.pop("d4_cpu")
+        _, err = proc.communicate(timeout=600)
+        d4["waited_for_cpu_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"D4's CPU sessions exit 0: {err[-2000:]}")
+        with open(twin_out, "rb") as f:
+            twins = pickle.load(f)
+        for stage2, (rec, summary, refines) in twins.items():
+            recs[stage2, "cpu"] = rec
+            d4[f"d4_{stage2}_cpu"] = {**{k: summary[k] for k in (
+                "ingest_s", "evicted", "refine_merges", *D_COUNTERS)},
+                "refines": refines}
+        for stage2 in ("host", "device"):
+            card = recs[stage2, "card"]
+            for other in ("cpu", "sqlite"):
+                for field in card:
+                    check(recs[stage2, other][field] == card[field],
+                          f"D4 {stage2} {field}: {other} == card memory")
+            check(card["evicted"] > 0, f"D4 {stage2} evicted rows")
+            check(card["overflow"] == card["row_overflow"] == 0,
+                  f"D4 {stage2}: nothing overflowed")
+            d4[f"{stage2}_evicted"] = card["evicted"]
+            d4[f"{stage2}_compacted_keys"] = card["compacted_keys"]
+        card = recs["device", "card"]
+        check(card["device_scored"] > 0 and card["host_rescored"] == 0,
+              "D4 device: device-scored edges, no host re-score")
+        # 64 of H3's queries over the sqlite view against the memory view.
+        queries = ctx.pop("d4_queries")
+        pipe = DedupPipeline(replace(cfg, use_kernels=True), device=device)
+        toks = pipe.tokenize(queries)
+        q_sig, q_bands = pipe.compute_arrays(
+            toks, pad_len=shingle.pow2_bucket(max(len(t) for t in toks)))
+        answers = {}
+        for name, view in views.items():
+            t0 = time.perf_counter()
+            answers[name] = query_view(view, q_bands, sig=q_sig,
+                                       backend="kernel")
+            d4[f"query_{name}_s"] = time.perf_counter() - t0
+        check(views["sqlite"].band_store is not None
+              and views["sqlite"].band_maps == ()
+              and views["card"].band_store is None,
+              "D4: the sqlite view probes the live store, the memory view "
+              "its maps")
+        check(answers["sqlite"] == answers["card"],
+              "D4: query_view over the sqlite view == over the memory view")
+        d4.update(queries=len(queries),
+                  query_duplicates=sum(r.is_duplicate
+                                       for r in answers["card"]),
+                  query_filter_only_hits=sum(r.filter_only_hits
+                                             for r in answers["card"]))
+        emit(phase_d4=d4)
+        del views, answers
 
         # D3: the CLI on the card, against its CPU twin.
-        d2_end = time.perf_counter()
+        d4_end = time.perf_counter()
         reports, seconds = {}, {}
         for name, proc in procs.items():
             out, err = proc.communicate(timeout=600)
@@ -2815,12 +3185,15 @@ def phase_d(torch, notes: list[str], prov: list, ctx: dict,
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+        tmp.cleanup()
     card, cpu = (cli_counts(reports[name]) for name in ("card", "cpu"))
     check(card is not None and card == cpu,
           f"sharded CLI: the card's report == the CPU's ({card}, {cpu})")
-    emit(phase_d3={"argv": cli[1:] + [device],
+    check(card[-3] > 0, "sharded CLI: rows evicted")
+    emit(phase_d3={"argv": cli[1:] + ["--store-path", "FILE", "--device",
+                                      device],
                    "seconds_from_start": seconds,
-                   "waited_after_d2_s": time.perf_counter() - d2_end,
+                   "waited_after_d4_s": time.perf_counter() - d4_end,
                    "report": reports["card"], "cpu_report": reports["cpu"],
                    "counts": card})
     return launches
@@ -2831,13 +3204,15 @@ SHARDED_REPORT = re.compile(
     r"(\d+) docs ingested, (\d+) clusters, (\d+) duplicates, (\d+) pairs "
     r"verified \((\d+) excluded\) in (\d+) batches .*, (\d+) overflow, "
     r"stage2=device (\d+) device-scored / (\d+) host-rescored / (\d+) "
-    r"row-overflow")
+    r"row-overflow, (\d+) rows retained \((\d+) evicted, (\d+) filter-only "
+    r"hits, (\d+) refine merges\)")
 
 
 def cli_counts(report: list[str]):
     """The counts of the sharded CLI's report line (docs, clusters,
     duplicates, pairs, excluded, batches, overflow, device-scored,
-    host-rescored, row-overflow), or None without one."""
+    host-rescored, row-overflow, rows retained, evicted, filter-only
+    hits, refine merges), or None without one."""
     for line in report:
         m = SHARDED_REPORT.match(line)
         if m:

@@ -571,6 +571,7 @@ def feed_step_groups(
     edge_offset: int = 0,
     verifier=None,
     stream: bool | None = None,
+    on_group_merged=None,
 ) -> StepFeed:
     """Feed one step output into a ``ClusterAccumulator``, group by group.
 
@@ -583,6 +584,13 @@ def feed_step_groups(
     ``stream=False`` brings every group's buffers to the host before the
     loop; ``True`` brings each group's when the loop reaches it; ``None``
     decides by ``_resolve_stream``.  The feed is the same in every mode.
+
+    ``on_group_merged`` (if given) runs after each group's feed, before
+    the next group's buffers are taken: a session's retention sweep, so
+    rows are evicted inside a step too.  The sweep may run mid-step: it
+    releases only rows of docs that lost roothood outside its protection
+    window, and the later groups' edges touch only this step's rows,
+    which the caller protects, and current roots.
 
     Returns the step's edge and overflow accounting; the overflow
     fallback stays with the caller.
@@ -621,6 +629,8 @@ def feed_step_groups(
             row_overflow += int(g["row_overflow"].sum())
         num_edges += source.num_edges
         group_stats.append(acc.feed(source, verifier=verifier))
+        if on_group_merged is not None:
+            on_group_merged()
 
     if device_scored and hasattr(verifier, "clear_scores"):
         # Registered scores are dead once their edges have been fed.

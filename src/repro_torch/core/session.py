@@ -58,10 +58,10 @@ K4, or K6 with byte ingest), the kernel verify backend through K2, and
 ``refine``'s re-band of the representatives through K5 when
 ``config.use_kernels`` is on, and a sqlite streaming session's verify
 through K2'.  A sharded session runs the step's K1 (or K6 -> K1), K7 for
-``stage2="device"``, and K2 for every host verify.  Not ported yet, and
-raising ``NotImplementedError``: a sharded session with a retention
-policy or over the sqlite index (``ROADMAP.md`` queue 1, item 4, second
-part).
+``stage2="device"``, and K2 for every host verify.  Under a retention
+policy it also sweeps between the step's band-group merges, with the
+chunk's own rows protected, and its cross-step index may be the sqlite
+one.
 """
 from __future__ import annotations
 
@@ -100,9 +100,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import bandfold
 
 BACKENDS = ("host", "streaming", "sharded")
-
-_ITEM4_PART2 = ("is not ported yet (ROADMAP.md, queue 1 item 4, second "
-                "part: retention and the sqlite index over sharded steps)")
 
 
 class DocIdAllocator:
@@ -453,11 +450,6 @@ class DedupSession:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
         self.config = config or DedupConfig()
-        if backend == "sharded" and (retention is not None
-                                     or self.config.store == "sqlite"):
-            raise NotImplementedError(
-                f"a sharded session with a retention policy or "
-                f"store='sqlite' {_ITEM4_PART2}")
         self.backend = backend
         self.device = resolve_device(device)
         self.allocator = DocIdAllocator(doc_id_base)
@@ -1202,8 +1194,9 @@ class _ShardedBackend:
         return (base, docs, n_real, out)
 
     def merge(self, pending):
-        """Feed the step's band groups, the retry if a buffer overflowed,
-        then the cross-step pass.  Records ``merge_s``, ``feed_s``,
+        """Feed the step's band groups (sweeping between them under a
+        retention policy), the retry if a buffer overflowed, then the
+        cross-step pass.  Records ``merge_s``, ``feed_s``,
         ``cross_step_s`` and ``cross_step_edges`` in the session's
         ``stage_timings``."""
         from repro_torch.core.dist_lsh import feed_step_groups
@@ -1220,9 +1213,18 @@ class _ShardedBackend:
                      if sess.config.resolved_backend() == "numpy" else sig)
         sess.n_merged = base + n_real
         sess.acc.grow(sess.n_docs)
+        on_group = None
+        if sess.retention is not None:
+            # Sweep between band-group merges, the chunk's own rows
+            # protected: the later groups' edges touch only those rows
+            # and current roots.  The cutoff comes from n_merged, set
+            # above, never from the allocator (which a lookahead runs
+            # one chunk ahead).
+            on_group = lambda: sess.retention.sweep(sess, protect_from=base)
         feed = feed_step_groups(
             sess.acc, out, self.dcfg, num_docs=base + n_real,
-            edge_offset=0, verifier=sess._verifier, stream=self.stream)
+            edge_offset=0, verifier=sess._verifier, stream=self.stream,
+            on_group_merged=on_group)
         sess.overflow += feed.overflow
         sess.row_overflow += feed.row_overflow
         t1 = time.perf_counter()

@@ -24,7 +24,9 @@ full-signature verify on the host merge or, with ``--stage2 device``,
 on the card through K7) over a process group: the one ``torchrun``
 starts (``--devices`` 0 or its world size), else a group of one rank
 that the command makes itself (NCCL on the card, gloo with ``--device
-cpu``; ``--devices`` 0 or 1).
+cpu``; ``--devices`` 0 or 1); it takes ``--retain-budget``,
+``--refine-every`` and ``--store sqlite --store-path`` as the host mode
+does.
 
   PYTHONPATH=src python -m repro_torch.launch.dedup --notes 500 --dups 300
   PYTHONPATH=src python -m repro_torch.launch.dedup --steps 4 --fused-ingest \\
@@ -37,12 +39,11 @@ cpu``; ``--devices`` 0 or 1).
       --store sqlite --store-path bands.db
   PYTHONPATH=src python -m repro_torch.launch.dedup --sharded --steps 4 \\
       --fused-ingest --stage2 device --band-groups 5
+  PYTHONPATH=src python -m repro_torch.launch.dedup --sharded --steps 4 \\
+      --stage2 device --retain-budget small --refine-every 2 \\
+      --store sqlite --store-path bands.db
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.dedup \\
       --sharded --steps 4 --fused-ingest
-
-``--sharded`` with ``--retain-budget``, ``--refine-every`` or ``--store
-sqlite`` is not ported yet, and exits naming its ``ROADMAP.md`` queue
-item.
 """
 from __future__ import annotations
 
@@ -169,11 +170,6 @@ def main(argv=None):
                          "lookups; identical clusters either way). "
                          "Default: $REPRO_STORE_BACKEND or memory")
     args = ap.parse_args(argv)
-    if args.sharded and (args.retain_budget != "none" or args.refine_every
-                         or args.store == "sqlite"):
-        ap.error("--sharded with --retain-budget, --refine-every or "
-                 "--store sqlite is not ported yet: ROADMAP.md queue 1 "
-                 "item 4, second part")
 
     import numpy as np
 
@@ -206,7 +202,7 @@ def main(argv=None):
         **({"store": args.store} if args.store else {}))
 
     if args.sharded:
-        run_sharded(ap, args, cfg, notes, chunks)
+        run_sharded(ap, args, cfg, notes, chunks, retention)
         return
 
     if args.streaming:
@@ -283,10 +279,11 @@ def process_group(ap, args):
     return made
 
 
-def run_sharded(ap, args, cfg, notes, chunks):
+def run_sharded(ap, args, cfg, notes, chunks, retention):
     """``--sharded``: one sharded ``DedupSession`` over ``chunks``, with
     estimate verification (the step's verify is the signature
-    estimate); every rank runs it, rank 0 reports."""
+    estimate) and ``retention`` (a ``RetentionPolicy`` or ``None``);
+    every rank runs it, rank 0 reports."""
     from dataclasses import replace
 
     import torch.distributed as dist
@@ -303,6 +300,7 @@ def run_sharded(ap, args, cfg, notes, chunks):
                              byte_ingest=args.byte_ingest)
         sess = DedupSession(replace(cfg, exact_verification=False),
                             backend="sharded", dist_config=dcfg,
+                            store_path=args.store_path, retention=retention,
                             device=args.device)
         t0 = time.perf_counter()
         for snap in sess.ingest_stream(chunks):

@@ -541,6 +541,58 @@ def test_sharded_session_on_card_matches_cpu(cuda):
     assert launched[2] > 0 and out["cuda"][-1][4] > 0
 
 
+@pytest.mark.parametrize("store", ["memory", "sqlite"])
+def test_sharded_retention_session_on_card_matches_cpu(cuda, store,
+                                                       tmp_path):
+    """A one-shard sharded session with device stage 2 under an LRU window
+    of 16 refining every 2 steps, its cross-step index in memory or in
+    sqlite, over 4 chunks: equal to the same session on the CPU snapshot
+    for snapshot, rows evicted (also by the sweeps between band groups,
+    whose freed rows the next chunk fills on the card), no host
+    re-score, and refine's fold through K5."""
+    from repro_torch.core import RetentionPolicy
+
+    notes, _ = inject_near_duplicates(make_i2b2_like(200, seed=0), 100,
+                                      seed=1)
+    order = np.random.RandomState(2).permutation(len(notes))
+    chunks = [[notes[i] for i in idx] for idx in np.array_split(order, 4)]
+    cfg = DedupConfig(fused_ingest=True, use_kernels=True,
+                      exact_verification=False, verify_backend="kernel",
+                      store=store)
+    dcfg = DistLSHConfig(fused_ingest=True, band_groups=5, stage2="device",
+                         edge_capacity=4096, bucket_slack=16.0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        k5.launches = k2.masked_launches = 0
+        sess = DedupSession(cfg, backend="sharded", dist_config=dcfg,
+                            retention=RetentionPolicy(lru_window=16,
+                                                      refine_every=2),
+                            store_path=str(tmp_path / f"{device}.db"),
+                            device=device)
+        sweep, in_step = sess.retention.sweep, []
+
+        def counted(s, protect_from=None):
+            n = sweep(s, protect_from=protect_from)
+            if protect_from is not None:
+                in_step.append(n)
+            return n
+
+        sess.retention.sweep = counted
+        out[device] = [(s.labels.tolist(), s.pairs, s.overflow, s.retried,
+                        s.device_scored, s.host_rescored, s.row_overflow,
+                        s.evicted, s.retained_rows, s.refine_merges,
+                        s.filter_only_hits, s.representatives.tolist())
+                       for s in sess.ingest_stream(chunks)]
+        launched = (k5.launches, k2.masked_launches)
+    assert out["cuda"] == out["cpu"]
+    last = out["cuda"][-1]
+    assert last[7] > 0 and last[5] == 0 and last[4] > 0
+    assert sum(in_step) > 0
+    assert launched[0] == 2                 # K5 once a refine
+    assert launched[1] == len(chunks) * dcfg.band_groups
+    assert sess.refines_run == 2
+
+
 # -- K8: flash attention ---------------------------------------------------------
 
 def _attn_inputs(B, Sq, Skv, H, Hkv, Dh, dtype, device, seed=0, Dv=None):

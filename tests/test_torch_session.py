@@ -222,28 +222,48 @@ def test_pipeline_run_through_the_session_keeps_its_result():
     assert not got.labels.flags.writeable
 
 
-def test_later_slices_raise_not_implemented():
-    """A sharded session with a retention policy or over the sqlite index
-    waits for its queue item (the sharded session itself is ported:
-    ``tests/test_torch_sharded_session.py``); the streaming backend and
-    ``over_store`` are ported and equal the reference's
-    (``tests/test_torch_streaming.py`` has the rest), as are retention,
-    ``refine`` and the bounded ``BandIndex``
+def test_later_slices_raise_not_implemented(tmp_path):
+    """The slices this test once waited for are ported: a sharded session
+    with a retention policy, and one over the sqlite index, are built
+    and equal the reference's (``tests/test_torch_sharded_retention.py``
+    has the rest); the streaming backend and ``over_store`` equal the
+    reference's (``tests/test_torch_streaming.py`` has the rest), as do
+    retention, ``refine`` and the bounded ``BandIndex``
     (``tests/test_torch_retention.py``)."""
-    from repro_torch.core import RetentionPolicy
+    import repro.core.dist_lsh as ref_dist
+    from repro.core import RetentionPolicy as RefPolicy
+    from repro_torch.core import RetentionPolicy, dist_lsh
+    from repro_torch.core.bandstore import SqliteBandStore
     from repro_torch.core.streaming import StreamingDedup
     import repro.core.streaming as ref_streaming
 
+    docs = _corpus(24, 12, seed=2)
+    fields = dict(ngram=4, num_hashes=20, edge_threshold=0.5,
+                  exact_verification=False)
+    dk = dict(ngram=4, num_hashes=20, verify_k=8, edge_capacity=256,
+              edge_threshold=0.5, bucket_slack=16.0, band_groups=2)
+    step = None  # the reference's compiled step, shared by its sessions
+    for store, window in (("memory", 8), ("sqlite", None)):
+        path = str(tmp_path / f"{store}.db")
+        port = DedupSession(
+            DedupConfig(verify_backend="kernel", store=store, **fields),
+            device="cpu", backend="sharded", store_path=path,
+            dist_config=dist_lsh.DistLSHConfig(**dk),
+            retention=RetentionPolicy(lru_window=window) if window else None)
+        ref = ref_session.DedupSession(
+            ref_pipeline.DedupConfig(store=store, **fields),
+            backend="sharded", store_path=str(tmp_path / f"ref_{store}.db"),
+            dist_config=ref_dist.DistLSHConfig(**dk),
+            retention=RefPolicy(lru_window=window) if window else None)
+        step = ref._impl._step = step or ref._impl._get_step()
+        assert port.backend == "sharded"
+        assert isinstance(port.band_index, SqliteBandStore) \
+            == (store == "sqlite")
+        for chunk in _chunks(docs, 2):
+            got, want = port.ingest(chunk), ref.ingest(chunk)
+            _assert_same(got, want)
+            assert got.evicted == want.evicted
     cfg = DedupConfig(store="memory")
-    item = "queue 1 item 4, second part"
-    with pytest.raises(NotImplementedError, match=item):
-        DedupSession(cfg, device="cpu", backend="sharded",
-                     retention=RetentionPolicy(lru_window=8))
-    with pytest.raises(NotImplementedError, match=item):
-        DedupSession(DedupConfig(store="sqlite"), device="cpu",
-                     backend="sharded")
-    assert DedupSession(cfg, device="cpu", backend="sharded").backend \
-        == "sharded"
     notes = _corpus(24, 12, seed=2)
     ref_cfg, port_cfg = _configs(exact_verification=False)
     ref = ref_session.DedupSession(ref_cfg, backend="streaming", chunk_docs=8)

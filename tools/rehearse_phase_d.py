@@ -56,6 +56,12 @@ def main(argv=None) -> int:
 
     cs.check = check
     cs.R3_SOURCES, cs.R3_DUPS = args.r3_sources, args.r3_dups
+    # D1's third chunk ends a quarter of the near-duplicates in (R1's
+    # window at phase A's size).
+    quarter = (args.notes + args.dups) // 4
+    cs.D1_ENDS = (quarter, 2 * quarter,
+                  args.notes + min(cs.R1_WINDOW, args.dups // 4),
+                  args.notes + args.dups)
     notes, prov = inject_near_duplicates(
         make_i2b2_like(args.notes, seed=0), args.dups, seed=1)
     D = len(notes)
@@ -71,9 +77,13 @@ def main(argv=None) -> int:
         packed.tokens, packed.lengths, minhash.default_seeds(cfg.num_hashes))
     one = dist_lsh.cluster_step_output(out, cfg, backend="kernel",
                                        batch="band", num_docs=D)
+    # D4's queries, as phase H picks them from H3's.
+    queries = notes[:: cs.H_QUERY_STRIDE] + make_i2b2_like(cs.H_NOVEL, seed=7)
     ctx = {"res": res, "d_h1_ingest_s": None,
            "s_one_shot": {"labels": one.labels(), "pairs": one.pairs,
-                          "config": base}}
+                          "config": base},
+           "d4_queries": queries[:: len(queries) // cs.D4_QUERIES][
+               : cs.D4_QUERIES]}
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
